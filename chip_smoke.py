@@ -7,23 +7,32 @@ Needs one CUDA card, nvcc and g++; builds every kernel from the sources in
 this checkout.  Phases (any failure raises, so the exit code is non-zero):
 
 1. the card's name and power limit (nvidia-smi);
-2. build K1 (csrc/fused_jump.cu, nvcc) and the host fold
-   (csrc/host_fold.cpp, g++) in parallel;
+2. build K1 (csrc/fused_jump.cu), P1 and P2 (csrc/probe_kernels.cu), both
+   with nvcc, and the host fold (csrc/host_fold.cpp, g++), in parallel;
 3. K1 against its plain torch version on the card: the six
    tests/test_pallas_jump.py cases, a ragged E, and the real-size case
    n = 2^23, E = 2^26 at L = 4 and L = 16 — lo and moved exactly equal;
    kernel_ms / plain_ms (CUDA events, median of 7 after warm-up) and
    bound_ms (bytes over 3.35 TB/s);
-4. hep-th golden: build_graph_hybrid and build_graph_device on the card
+4. P1 and P2 against their plain versions at n = 2^18 (the probe's
+   default), 2^20 and 2^24, exactly equal, with kernel_ms, plain_ms,
+   bound_ms and library_ms timed the same way; then the probe tool's
+   ``main`` once at its default size, which must report both kernels
+   right and launch both;
+5. hep-th golden: build_graph_hybrid and build_graph_device on the card
    print the golden TREEFAQS line and equal the host oracle;
-5. real size: build_graph_hybrid on rmat_edges(23, 2^26, seed=0)
-   (com-LiveJournal scale) equals the host oracle bit for bit;
-6. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
-7. a ``kernels`` JSON line, then the result line
+6. real size: build_graph_hybrid on rmat_edges(23, 2^26, seed=0)
+   (com-LiveJournal scale) on the default tail, the streamed windowed
+   handoff, which must report stream_mode "windowed" and 4 windows, then
+   once on the serial arm (SHEEP_STREAM_HANDOFF=0
+   SHEEP_OVERLAP_HANDOFF=0); every run equals the host oracle bit for bit;
+7. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
+8. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
-K1's launch count is reset just before each build and read just after;
-each build must have launched it.  Imports nothing of JAX or sheep_tpu.
+Every launch count is set to 0 just before each driven path and read just
+after: each build must have launched K1, and the probe tool P1 and P2.
+Imports nothing of JAX or sheep_tpu.
 """
 
 from __future__ import annotations
@@ -88,11 +97,12 @@ def time_ms(fn, device: torch.device, reps: int = 7, warmup: int = 2):
 def build_kernels() -> float:
     from sheep_tpu_torch import native
     from sheep_tpu_torch.buildlib import BUILD_LOGS
-    from sheep_tpu_torch.ops import fused_jump
+    from sheep_tpu_torch.ops import fused_jump, probe
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futs = [pool.submit(fused_jump.load_library),
+                pool.submit(probe.load_library),
                 pool.submit(native.load_library)]
         for fut in futs:
             fut.result()
@@ -189,21 +199,96 @@ def forest_equal(seq, forest, want_seq, want) -> bool:
             and np.array_equal(forest.pst_weight, want.pst_weight))
 
 
-def counted_build(fn, what: str):
-    """Run one build with K1's count set to 0 just before it and read
-    just after; the build must have launched K1."""
-    from sheep_tpu_torch.ops import fused_jump
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from sheep_tpu_torch.ops import fused_jump, probe
 
     fused_jump.launches = 0
+    for name in probe.launches:
+        probe.launches[name] = 0
+
+
+def read_counts() -> dict:
+    from sheep_tpu_torch.ops import fused_jump, probe
+
+    return {"fused_jump": fused_jump.launches, **probe.launches}
+
+
+def counted_build(fn, what: str):
+    """Run one build with every count set to 0 just before it and read
+    just after; the build must have launched K1."""
+    reset_counts()
     t0 = time.perf_counter()
     out = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_jump.launches
+    launches = read_counts()["fused_jump"]
     if launches <= 0:
         raise AssertionError(f"{what}: K1 was not launched on the main path")
     return out, wall, launches
+
+
+def probe_case(name: str, n: int, kernel, plain, args, device,
+               bytes_moved: int, library=None):
+    """One probe kernel against its plain version on one input: exactly
+    equal, then kernel_ms, plain_ms and library_ms (median of 7 after
+    warm-up) and bound_ms (bytes over the card's memory rate)."""
+    got = kernel(*args)
+    want = plain(*args)
+    equal = torch.equal(got, want)
+    err = int((got.long() - want.long()).abs().max())
+    rec = {"kernel": name, "n": n, "equal": equal, "max_abs_err": err,
+           "kernel_ms": time_ms(lambda: kernel(*args), device),
+           "plain_ms": time_ms(lambda: plain(*args), device),
+           "library_ms": time_ms(lambda: library(*args), device)
+           if library is not None else None,
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3}
+    log("probe " + json.dumps(rec))
+    if not equal:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{rec}")
+    return rec
+
+
+def probe_phase(device: torch.device, log_ns=(18, 20, 24)):
+    """P1 and P2 against their plain versions, then the probe tool's
+    main path with the counts set to 0 just before it."""
+    from sheep_tpu_torch.ops import probe
+    from sheep_tpu_torch.scripts import kernel_probe
+
+    recs = []
+    for log_n in log_ns:
+        n = 1 << log_n
+        x = torch.arange(n, dtype=torch.int32, device=device).reshape(
+            n // 256, 256)
+        # the library yardstick for P1 is the one PyTorch call x + 1,
+        # which is also P1's plain version
+        recs.append(probe_case("add_one", n, probe.add_one,
+                               probe.add_one_plain, (x,), device, 8 * n,
+                               library=lambda a: a + 1))
+        args = kernel_probe.probe_inputs(n, device)
+        recs.append(probe_case("jump_step", n, probe.jump_step,
+                               probe.jump_step_plain, args, device, 16 * n))
+        del x, args
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = kernel_probe.main(["--device", str(device)])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    text = buf.getvalue().strip()
+    log(f"probe tool (rc={rc}): {text}")
+    rec = json.loads(text.splitlines()[-1])
+    if rc != 0 or rec.get("trivial_kernel") != "ok" \
+            or rec.get("jump_kernel_correct") is not True:
+        raise AssertionError(f"the probe tool failed: rc={rc} {rec}")
+    if counts["add_one"] <= 0 or counts["jump_step"] <= 0:
+        raise AssertionError(f"the probe tool did not launch P1 and P2: "
+                             f"{counts}")
+    log(f"probe tool launches: {json.dumps(counts)}")
+    return recs, rec, counts
 
 
 def golden_phase(device: torch.device):
@@ -219,8 +304,14 @@ def golden_phase(device: torch.device):
     out = {}
     for name, build in (("hybrid", build_graph_hybrid),
                         ("device", build_graph_device)):
+        perf: dict = {}
+        kw = {"perf": perf} if name == "hybrid" else {}
         (seq, forest), wall, launches = counted_build(
-            lambda: build(el.tail, el.head, device=device), f"hep-th {name}")
+            lambda: build(el.tail, el.head, device=device, **kw),
+            f"hep-th {name}")
+        if str(perf.get("stream_mode", "")).startswith("fallback"):
+            raise AssertionError(f"hep-th hybrid: the streamed tail failed "
+                                 f"over to the serial fetch: {perf}")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             compute_facts(forest).print()
@@ -246,8 +337,27 @@ def oracle(tail, head):
     return want_seq, want, time.perf_counter() - t0
 
 
+#: the serial arm's knobs (the reference's SHEEP_STREAM_HANDOFF=0
+#: SHEEP_OVERLAP_HANDOFF=0)
+SERIAL_ARM = {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "0"}
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def real_size_phase(device: torch.device, log_n: int = 23,
-                    log_e: int = 26, runs: int = 2):
+                    log_e: int = 26, runs: int = 2, windows: int = 4):
     from sheep_tpu_torch.ops.build import build_graph_hybrid
     from sheep_tpu_torch.utils import rmat_edges
 
@@ -258,21 +368,34 @@ def real_size_phase(device: torch.device, log_n: int = 23,
     want_seq, want, oracle_s = oracle(tail, head)
     log(f"real: host oracle in {oracle_s:.2f}s, m={len(want_seq)}")
     recs = []
-    for run in range(runs):
+    # the default tail (streamed) runs first and last, the serial arm
+    # between, so the two arms meet on one card in turns
+    arms = ["stream"] * (runs - 1) + ["serial", "stream"]
+    for run, arm in enumerate(arms):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         perf: dict = {}
-        (seq, forest), wall, launches = counted_build(
-            lambda: build_graph_hybrid(tail, head, device=device, perf=perf),
-            "real-size hybrid")
+        with env_set(SERIAL_ARM if arm == "serial" else {}):
+            (seq, forest), wall, launches = counted_build(
+                lambda: build_graph_hybrid(tail, head, device=device,
+                                           perf=perf),
+                f"real-size hybrid ({arm})")
         if not forest_equal(seq, forest, want_seq, want):
-            raise AssertionError("real-size hybrid differs from the oracle")
-        rec = {"run": run, "records": len(tail), "wall_s": wall,
+            raise AssertionError(f"real-size hybrid ({arm}) differs from "
+                                 f"the oracle")
+        rec = {"run": run, "arm": arm, "records": len(tail), "wall_s": wall,
                "records_per_s": len(tail) / wall,
                "k1_launches": launches, **perf}
         if device.type == "cuda":
             rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         log("real hybrid " + json.dumps(rec))
+        if arm == "stream" and (perf.get("stream_mode") != "windowed"
+                                or perf.get("fetch_windows") != windows):
+            raise AssertionError(
+                f"real-size hybrid: the default tail did not stream "
+                f"{windows} windows: stream_mode="
+                f"{perf.get('stream_mode')} "
+                f"fetch_windows={perf.get('fetch_windows')}")
         recs.append(rec)
     return recs
 
@@ -303,8 +426,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} ({kind}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    log(f"build: K1 and host fold in {build_kernels():.2f}s")
+    log(f"build: K1, P1/P2 and host fold in {build_kernels():.2f}s")
     k1 = k1_phase(device)
+    probes, _, probe_counts = probe_phase(device)
     golden_phase(device)
     real = real_size_phase(device)
     device_phase(device)
@@ -323,6 +447,26 @@ def main() -> int:
         "library_ms": None,
         "case": f"n={timed['n']} E={timed['E']} L={timed['L']}",
     }]
+    probe_kernels = (
+        ("add_one", "add_one_plain", "scripts/pallas_probe.py:42",
+         "one PyTorch call, x + 1 (also the plain version)"),
+        ("jump_step", "jump_step_plain", "scripts/pallas_probe.py:74",
+         "none: a gather, a compare and a select are three calls"))
+    for name, plain, replaces, library in probe_kernels:
+        cases = [r for r in probes if r["kernel"] == name]
+        big = max(cases, key=lambda r: r["n"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sheep_tpu_torch/csrc/probe_kernels.cu",
+            "replaces": replaces, "plain": plain,
+            "equal": all(r["equal"] for r in cases),
+            "launches": probe_counts[name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": big["kernel_ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": "bytes",
+            "library_ms": big["library_ms"], "library": library,
+            "case": f"n={big['n']}",
+        })
     log(json.dumps({"kernels": kernels}))
     log(card)  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

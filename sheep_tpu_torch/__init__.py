@@ -5,17 +5,23 @@ counterpart is easy to find, but imports nothing of it (and never
 ``jax``): what it needs from the host-only layers it keeps as its own copy.
 
 Layout:
-  core/     host oracle: Forest, build_forest, sequences, tree facts
-  native/   ctypes binding of the sequential union-find fold
-            (csrc/host_fold.cpp)
+  core/     host oracle: Forest, build_forest, sequences, tree facts,
+            the streamed handoff's window bounds and resumable fold
+  native/   ctypes binding of the sequential union-find fold, monolithic
+            and resumable (csrc/host_fold.cpp)
   io/       edge-list readers (.dat XS1 binary, .net SNAP text)
   ops/      device ops on torch tensors: sort, the reduce loop, the hybrid
-            build, and K1's wrapper (ops/fused_jump.py, csrc/fused_jump.cu)
+            build with its streamed windowed handoff, K1's wrapper
+            (ops/fused_jump.py, csrc/fused_jump.cu) and the backend
+            probe's kernels P1 and P2 (ops/probe.py, csrc/probe_kernels.cu)
+  scripts/  tools: the backend probe (python -m
+            sheep_tpu_torch.scripts.kernel_probe)
   utils/    synthetic R-MAT graphs
   convert   numpy state <-> tensors on a device
 
-Entry points (``ops.build.build_graph_hybrid``, ``build_graph_device``)
-run on the CUDA card unless the caller passes ``device="cpu"``.
+Entry points (``ops.build.build_graph_hybrid``, ``build_graph_device``,
+the probe tool) run on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -10,6 +10,7 @@ source is rebuilt.  A failed build raises with the compiler's output.
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import threading
 
@@ -46,3 +47,18 @@ def build_shared(source: str, lib_name: str, command) -> str:
     BUILD_LOGS[lib_name] = proc.stdout + proc.stderr
     os.replace(tmp, out)
     return out
+
+
+def nvcc_command(src: str, out: str) -> list:
+    """The argv that builds one ``csrc/*.cu`` into a shared library with a
+    plain C interface for sm_90a (ptxas reports registers and spills);
+    nvcc from PATH, else /usr/local/cuda/bin."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(f"nvcc not found: {os.path.basename(src)} "
+                           f"cannot be built")
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", out, src]

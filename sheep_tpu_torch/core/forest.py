@@ -61,6 +61,26 @@ def build_forest_links(lo: np.ndarray, hi: np.ndarray, n: int,
     return Forest(parent, pst_out)
 
 
+def host_hi_window_bounds(hi: np.ndarray, w: int, n: int) -> list[int]:
+    """Equal-count hi-quantile window boundaries over an unsorted host hi
+    array (np.partition at the quantile ranks, no full sort).  Window k
+    keeps hi in [bounds[k], bounds[k+1])."""
+    cnt = len(hi)
+    ks = sorted({(k * cnt) // w for k in range(1, w)})
+    if not ks or cnt == 0:
+        return [0, n]
+    mid = np.partition(np.asarray(hi), ks)[ks]
+    return [0, *(int(x) for x in mid), n]
+
+
+def links_fold(n: int, pst: np.ndarray | None = None):
+    """The resumable link fold: ``block(lo, hi)`` per ascending-hi window,
+    then ``finish() -> (parent, pst)``; always the native
+    :class:`~sheep_tpu_torch.native.LinksFold`."""
+    from .. import native
+    return native.LinksFold(n, pst)
+
+
 def build_forest(tail: np.ndarray, head: np.ndarray, seq: np.ndarray,
                  max_vid: int | None = None) -> Forest:
     """Build from raw edge records over a (possibly partial) graph."""

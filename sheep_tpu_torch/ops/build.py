@@ -8,15 +8,34 @@ the host and the exact sequential union-find (``native``) finishes.
 Sound because every round preserves threshold connectivity, and the
 forest is a function of threshold connectivity alone.
 
-This port carries the reference's serial handoff tail (its
-``SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0`` arm, which it documents
-as bit-identical to its streamed default): one fetch of the reduced
-links, one fold.  Where the reference branches on the JAX platform, the
-port branches on ``device.type``; the env knobs keep their meanings.
+The hybrid's tail is the reference's default, the streamed windowed
+handoff (:func:`stream_handoff_enabled`): the reduced links are sorted by
+hi on the device and fetched on a background thread as W equal-count
+hi-quantile windows of fixed-length slices (:class:`_WindowStream`), and
+each window is folded into the resumable union-find
+(``native.LinksFold``) the moment it lands, so the fold of window k
+overlaps the fetch of window k+1.  On CUDA the slices go into pinned host
+memory through ``non_blocking`` copies on a side stream that waits on an
+event recorded after the sort.  On the CPU the fetch is a view, so the
+windows split on the host, and the prep takes the reference's CPU
+default: a host degree sequence (:func:`host_seq_mode`) and an immediate
+handoff whose fold counts pst itself.  Any stream failure falls back to a
+serial fetch of the same device arrays, and ``perf["stream_mode"]`` says
+so.
+
+``SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0`` selects the serial arm:
+one fetch of the reduced links, one fold.  The reference's speculative
+overlapped snapshot (its ``_SpecHandoff``: stream off, overlap on, which
+an accelerator defaults to once the stream is off) is not ported; that
+combination raises NotImplementedError.  Where the reference branches on
+the JAX platform, the port branches on ``device.type``; the env knobs keep
+their meanings.
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import os
 import threading
 import time
@@ -27,8 +46,9 @@ import torch
 from .. import resolve_device
 from ..convert import edges_to_device
 from ..core.forest import Forest
-from .forest import (_np, _to_forest, forest_fixpoint_hosted,
-                     parent_from_links, pst_weights, reduce_links_hosted)
+from .forest import (_i32, _np, _to_forest, forest_fixpoint_hosted,
+                     pack_links_6b, parent_from_links, pst_weights,
+                     reduce_links_hosted, sort_links_by_hi, unpack_links_6b)
 from .sort import (degree_histogram, degree_order, edge_links,
                    given_seq_links)
 
@@ -120,11 +140,14 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     links remain (SHEEP_HANDOFF_FACTOR; default 3 on CUDA, 8 on the CPU).
     ``host_edges``: the same records as host numpy arrays; with them seq
     and pst are recomputed on the host while the device reduces (numpy
-    inputs serve as their own host copy on CUDA).  ``seq``: a given
-    elimination order (edges to vids outside it count toward pst, never
-    the tree).  ``perf``: a dict that receives loop_s, fetch_tail_s,
-    pst_wait_s, fold_s, handoff_links, packed_handoff, rounds, live and
-    prefetch_s (the seq/pst prefetch thread's own time).
+    inputs serve as their own host copy on CUDA, and on the CPU under the
+    streamed immediate handoff, where they feed the host-seq prep).
+    ``seq``: a given elimination order (edges to vids outside it count
+    toward pst, never the tree).  ``perf``: a dict that receives loop_s,
+    rounds, live, fetch_tail_s, handoff_links, packed_handoff, fold_s,
+    pst_wait_s, prefetch_s (the seq/pst prefetch thread's own time, when
+    it runs), fetch_windows and, from the streamed tail, stream_mode,
+    window_fetch_s, window_fold_s, overlap_s and overlap_frac.
     """
     device = resolve_device(device)
     if handoff_factor is None:
@@ -135,15 +158,26 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     if n == 0:
         return np.empty(0, np.uint32), Forest(
             np.empty(0, np.uint32), np.empty(0, np.uint32))
-    if host_edges is None and device.type == "cuda" \
-            and isinstance(tail, np.ndarray) and isinstance(head, np.ndarray):
-        # the reference's accelerator default, made for a byte-bound
-        # link: the host copy replaces the 2n*4B seq/pst fetch.  On an
-        # H100 over PCIe the host recompute costs more than that fetch.
+    streamed_cpu = stream_handoff_enabled() and handoff_input_ok(device)
+    if host_edges is None \
+            and isinstance(tail, np.ndarray) and isinstance(head, np.ndarray) \
+            and (device.type == "cuda" or streamed_cpu):
+        # the reference's defaults: on an accelerator the host copy
+        # replaces the 2n*4B seq/pst fetch; under the CPU's streamed
+        # immediate handoff it feeds the host-seq prep below
         host_edges = (tail, head)
     t, h = _device_edges(tail, head, device)
     given_seq = None
     _lazy_pst = None
+    acc_ok = False  # may the tail fold count pst from its own links?
+    if seq is None and host_edges is not None and host_seq_mode(device) \
+            and streamed_cpu:
+        # host-seq prep: the degree sequence on the host up front, so the
+        # device maps links only.  Every active vid is in it, so no
+        # pst-only link is masked out and the fold may count pst itself
+        from ..core.sequence import degree_sequence
+        seq = degree_sequence(host_edges[0], host_edges[1], n)
+        acc_ok = True
     if seq is not None:
         # given order: no histogram, no device sort
         given_seq = np.asarray(seq, dtype=np.uint32)
@@ -157,8 +191,13 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
             def _lazy_pst():
                 return given_seq_links(t, h, given_seq, n)[2]
     else:
+        # the device pst scatter is skipped where the host recomputes pst
+        # or the streamed immediate-handoff fold counts it
         dev_seq, _, m, lo, hi, pst = prepare_links(
-            t, h, n, with_pst=host_edges is None)
+            t, h, n, with_pst=host_edges is None and not streamed_cpu)
+        # full-graph prep: every vid holds a position, so no pst-only
+        # link is masked out
+        acc_ok = True
         if pst is None:
             orig_lo = lo
 
@@ -168,26 +207,32 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     # seq/pst overlap the reduce rounds on a second thread: recomputed
     # from the host edge copy, or fetched from the device
     fetched: dict = {}
+    pre = None
+    if acc_ok and given_seq is not None:
+        # host-seq prep: seq and m are known, and pst comes from the
+        # fold's own read pass (the fallbacks resolve it through
+        # _lazy_pst), so there is nothing to prefetch
+        fetched = {"seq": given_seq, "m": len(given_seq)}
+    else:
+        def _prefetch():
+            t0 = time.perf_counter()
+            try:
+                if host_edges is not None:
+                    t_np, h_np = host_edges
+                    fetched["seq"], fetched["pst"] = _host_seq_pst(
+                        t_np, h_np, n, seq=given_seq)
+                    fetched["m"] = len(fetched["seq"])
+                else:
+                    fetched["seq"] = _np(seq)
+                    if pst is not None:
+                        fetched["pst"] = _np(pst)
+            except Exception:  # fall back to the synchronous fetch below
+                fetched.clear()
+            if perf is not None:
+                perf["prefetch_s"] = round(time.perf_counter() - t0, 4)
 
-    def _prefetch():
-        t0 = time.perf_counter()
-        try:
-            if host_edges is not None:
-                t_np, h_np = host_edges
-                fetched["seq"], fetched["pst"] = _host_seq_pst(
-                    t_np, h_np, n, seq=given_seq)
-                fetched["m"] = len(fetched["seq"])
-            else:
-                fetched["seq"] = _np(seq)
-                if pst is not None:
-                    fetched["pst"] = _np(pst)
-        except Exception:  # fall back to the synchronous fetch below
-            fetched.clear()
-        if perf is not None:
-            perf["prefetch_s"] = round(time.perf_counter() - t0, 4)
-
-    pre = threading.Thread(target=_prefetch, daemon=True)
-    pre.start()
+        pre = threading.Thread(target=_prefetch, daemon=True)
+        pre.start()
 
     def _pst_resolved():
         if "pst" in fetched:
@@ -195,17 +240,20 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
         return pst if pst is not None else _lazy_pst()
 
     def _pst_after_fetch():
-        # resolved only after the link fetch, so the prefetch overlaps it
-        pre.join()
+        # resolved only once the link fetch has begun, so the prefetch
+        # overlaps it
+        if pre is not None:
+            pre.join()
         return _as_u32(_np(_pst_resolved()))
 
     res = reduce_and_finish_native(
         lo, hi, n, stop_live=handoff_factor * n,
         handoff_input=handoff_input_ok(device), pst_h=_pst_after_fetch,
-        perf=perf)
+        accumulate_pst_ok=acc_ok, perf=perf)
     if res[0] == "device":  # converged before the handoff threshold
         _, a, b, live, rounds = res
-        pre.join()
+        if pre is not None:
+            pre.join()
         parent = parent_from_links(a, b, n)
         return _finish(fetched.get("seq", seq), fetched.get("m", m), parent,
                        _pst_resolved())
@@ -231,23 +279,71 @@ def default_handoff_factor(device: torch.device) -> int:
 
 
 def pack_handoff(n: int, device: torch.device) -> bool:
-    """The 6-byte link packing policy of the handoff fetch
-    (SHEEP_PACK_HANDOFF overrides): on for CUDA, off on the CPU; packing
-    needs n < 2^24."""
+    """The 6-byte link packing policy of the serial fetch and the stream
+    alike (SHEEP_PACK_HANDOFF overrides): on for CUDA, off on the CPU;
+    packing needs n < 2^24."""
     pack = os.environ.get("SHEEP_PACK_HANDOFF", "")
     if pack == "":
         pack = "0" if device.type == "cpu" else "1"
     return pack == "1" and n < (1 << 24)
 
 
+def stream_handoff_enabled() -> bool:
+    """The streamed windowed handoff gate (SHEEP_STREAM_HANDOFF
+    overrides; default on).  An explicit SHEEP_OVERLAP_HANDOFF=1 without
+    an explicit stream choice turns it off, as in the reference, so that
+    arm names what it runs (and the port then raises: it has no
+    speculative snapshot)."""
+    v = os.environ.get("SHEEP_STREAM_HANDOFF", "")
+    if v != "":
+        return v == "1"
+    return os.environ.get("SHEEP_OVERLAP_HANDOFF", "") != "1"
+
+
+def handoff_windows(live: int, device: torch.device) -> int:
+    """Window count of the streamed tail (SHEEP_HANDOFF_WINDOWS
+    overrides): one on the CPU, where the fetch is a view and there is
+    nothing to overlap; on CUDA four once the handoff holds at least 2^20
+    links, so the fold runs behind the stream while each window stays
+    large, and one below that."""
+    v = os.environ.get("SHEEP_HANDOFF_WINDOWS", "")
+    if v != "":
+        return max(1, int(v))
+    if device.type == "cpu":
+        return 1
+    return 4 if live >= (1 << 20) else 1
+
+
+def host_seq_mode(device: torch.device) -> bool:
+    """Host degree sequence for the streamed hybrid's prep
+    (SHEEP_STREAM_HOST_SEQ overrides): on for the CPU, where host and
+    device share the cores and the device program shrinks to the link
+    mapping; off on CUDA, where the device sort is cheap and a host
+    sequence would serialize in front of the mapping."""
+    v = os.environ.get("SHEEP_STREAM_HOST_SEQ", "")
+    if v != "":
+        return v == "1"
+    return device.type == "cpu"
+
+
+def _overlap_enabled(device: torch.device) -> bool:
+    """The reference's speculative overlapped handoff gate
+    (SHEEP_OVERLAP_HANDOFF overrides): on for CUDA, off on the CPU.  The
+    port does not carry that handoff; the serial arm raises where it is
+    on."""
+    v = os.environ.get("SHEEP_OVERLAP_HANDOFF", "")
+    if v != "":
+        return v == "1"
+    return device.type != "cpu"
+
+
 def fetch_links_host(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int):
-    """The link-fetch policy: a 64K-granular cut of the live prefix,
-    6-byte packing per :func:`pack_handoff`, dead-sentinel filter.
-    Returns (lo_h, hi_h int32 numpy arrays, packed)."""
+    """The serial link-fetch policy: a 64K-granular cut of the live
+    prefix, 6-byte packing per :func:`pack_handoff`, dead-sentinel
+    filter.  Returns (lo_h, hi_h int32 numpy arrays, packed)."""
     cut = min(int(lo.shape[0]), -(-live // (1 << 16)) * (1 << 16))
     packed = pack_handoff(n, lo.device)
     if packed:
-        from .forest import pack_links_6b, unpack_links_6b
         buf = pack_links_6b(lo[:cut], hi[:cut]).cpu().numpy()[:live]
         lo_h, hi_h = unpack_links_6b(buf)
     else:
@@ -255,6 +351,255 @@ def fetch_links_host(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int):
         hi_h = hi[:cut].cpu().numpy()[:live]
     keep = lo_h < n  # a few scattered dead slots may remain in the prefix
     return lo_h[keep], hi_h[keep], packed
+
+
+@contextlib.contextmanager
+def _timed(out: list):
+    """Append the block's seconds to ``out`` when it completes (the
+    arithmetic of the reference's obs.trace.timed, without its span
+    recorder)."""
+    t0 = time.perf_counter()
+    yield
+    out.append(time.perf_counter() - t0)
+
+
+def overlap_stats(serialized_s: float, wall_s: float) -> dict:
+    """Realized overlap of concurrent phases: ``serialized_s`` is their
+    summed cost, ``wall_s`` what the clock saw (the reference's
+    obs.trace.overlap_stats)."""
+    overlap = max(0.0, serialized_s - wall_s)
+    return {
+        "overlap_s": round(overlap, 4),
+        "overlap_frac": round(overlap / serialized_s, 4)
+        if serialized_s > 0 else 0.0,
+    }
+
+
+def _slice_rows(buf: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    """The fixed-length row slice [start, start + length) of a device
+    buffer (a view)."""
+    return buf[start:start + length]
+
+
+def _to_host(parts, stream) -> list:
+    """Host numpy copies of device tensors.  With a CUDA ``stream``: into
+    pinned buffers by ``non_blocking`` copies on it, then one event that
+    the host waits on before numpy may read them.  Without: plain copies
+    (the CPU, where pinned memory does not exist)."""
+    cuda = stream is not None
+    outs = [torch.empty(p.shape, dtype=p.dtype, pin_memory=cuda)
+            for p in parts]
+    for out, part in zip(outs, parts):
+        out.copy_(part, non_blocking=cuda)
+    if cuda:
+        done = torch.cuda.Event()
+        done.record(stream)
+        done.synchronize()  # releases the GIL while it waits
+    return [out.numpy() for out in outs]
+
+
+class _StreamFetcher:
+    """Background slice-streamed device->host fetch of one link snapshot.
+
+    The snapshot (lo, hi) holds every live link in its first ``live``
+    slots.  Transfers run as fixed-length slices of a 6-byte-packed buffer
+    (n < 2^24, per :func:`pack_handoff`; int32 pairs otherwise), so
+    progress is observable between slices and an abort loses at most one
+    slice.  On CUDA the fetch thread copies on its own side stream, which
+    first waits on an event recorded on the caller's current stream after
+    the pack, and it keeps the packed buffer alive (``record_stream``)
+    until it ends.
+    """
+
+    def __init__(self, lo: torch.Tensor, hi: torch.Tensor, n: int,
+                 live: int, slice_links: int, autostart: bool = True):
+        self.packed = pack_handoff(n, lo.device)
+        self.bytes_per_link = 6 if self.packed else 8
+        width = int(lo.shape[0])  # pow2-padded
+        # round an arbitrary knob DOWN to a power of two (floor 512), so
+        # a slice always divides the pow2 width: a non-dividing slice
+        # would drop tail links without an error
+        slice_links = 1 << max(9, int(slice_links).bit_length() - 1)
+        self.slice_len = min(slice_links, width)
+        self.total_slices = min(-(-live // self.slice_len),
+                                width // self.slice_len)
+        self.done_slices = 0
+        self.failed = False
+        self.error: Exception | None = None  # what ended the thread
+        self._slice_s: list = []  # per-slice fetch seconds
+        self._abort = False
+        self._slices: list = []
+        if self.packed:
+            self._dev = (pack_links_6b(lo, hi),)
+        else:
+            self._dev = (_i32(lo).contiguous(), _i32(hi).contiguous())
+        self._device = lo.device
+        self._ready = None
+        if self._device.type == "cuda":
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(self._device))
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        if autostart:
+            self._thread.start()
+
+    # seams of the window queue (_WindowStream): gate a slice before its
+    # fetch, observe one landing.  Here: free-running.
+    def _wait_turn(self, i: int) -> None:
+        pass
+
+    def _on_slice(self) -> None:
+        pass
+
+    @property
+    def busy_s(self) -> float:
+        """Thread time spent fetching slices."""
+        return sum(self._slice_s)
+
+    def _run(self) -> None:
+        try:
+            if self._device.type == "cuda":
+                with torch.cuda.device(self._device):
+                    side = torch.cuda.Stream()
+                    side.wait_event(self._ready)
+                    for buf in self._dev:
+                        buf.record_stream(side)
+                    with torch.cuda.stream(side):
+                        self._fetch_all(side)
+            else:
+                self._fetch_all(None)
+        except Exception as exc:  # the consumer falls back to a serial fetch
+            self.error = exc
+            self.failed = True
+        finally:
+            self._dev = None  # release the device buffer promptly
+            self._on_slice()
+
+    def _fetch_all(self, side) -> None:
+        for i in range(self.total_slices):
+            self._wait_turn(i)
+            if self._abort:
+                return
+            start = i * self.slice_len
+            with _timed(self._slice_s):
+                got = _to_host([_slice_rows(buf, start, self.slice_len)
+                                for buf in self._dev], side)
+            self._slices.append(got[0] if self.packed else tuple(got))
+            self.done_slices = i + 1
+            self._on_slice()
+
+    def finished(self) -> bool:
+        return not self.failed and self.done_slices >= self.total_slices
+
+    def remaining_bytes(self) -> int:
+        return (self.total_slices - self.done_slices) * self.slice_len \
+            * self.bytes_per_link
+
+    def join(self, timeout: float | None = None,
+             mark_failed: bool = True) -> bool:
+        """Wait for the stream; True if it is STILL RUNNING afterwards
+        (then marked failed unless ``mark_failed`` is False)."""
+        self._thread.join(timeout)
+        alive = self._thread.is_alive()
+        if alive and mark_failed:
+            self.failed = True
+        return alive
+
+    def abort(self, timeout: float = 5.0) -> None:
+        """Stop at the next slice boundary and wait briefly; the slices
+        that landed stay, and a healthy stream is not marked failed."""
+        self._abort = True
+        self.join(timeout, mark_failed=False)
+
+    def _unpack(self, part: list):
+        if not part:
+            return np.empty(0, np.int32), np.empty(0, np.int32)
+        if self.packed:
+            return unpack_links_6b(np.concatenate(part))
+        los, his = zip(*part)
+        return np.concatenate(los), np.concatenate(his)
+
+    def collect(self) -> tuple[np.ndarray, np.ndarray]:
+        """Host (lo, hi) of every fetched slice (unfiltered: dead
+        sentinel slots remain; callers mask lo < n)."""
+        return self._unpack(list(self._slices))
+
+
+class _WindowStream(_StreamFetcher):
+    """The window queue of the streamed handoff: a hi-SORTED link table
+    streams as fixed-length slices grouped into W equal-count windows
+    (contiguous count-slices of the sorted table are the hi-quantile
+    windows), and the fetch thread runs at most :data:`PREFETCH` windows
+    ahead of the fold.  Resident host memory is O(live / W * PREFETCH);
+    :meth:`window` hands window k to the fold and frees its slices while
+    k+1 keeps streaming.
+    """
+
+    #: windows in flight beyond the one being folded
+    PREFETCH = 2
+
+    def __init__(self, lo, hi, n: int, live: int, slice_links: int,
+                 windows: int):
+        super().__init__(lo, hi, n, live, slice_links, autostart=False)
+        self._cv = threading.Condition()
+        self._consumed = -1  # highest window handed to the fold
+        w = max(1, min(windows, self.total_slices))
+        self.windows = w
+        self._cuts = [(k * self.total_slices) // w for k in range(w + 1)]
+        self._thread.start()
+
+    def _window_of(self, i: int) -> int:
+        return bisect.bisect_right(self._cuts, i) - 1
+
+    def _wait_turn(self, i: int) -> None:
+        with self._cv:
+            while (not self._abort
+                   and self._window_of(i)
+                   > self._consumed + 1 + self.PREFETCH):
+                self._cv.wait(0.5)
+
+    def _on_slice(self) -> None:
+        with self._cv:
+            self._cv.notify_all()
+
+    def window(self, k: int, timeout_s: float | None = None):
+        """Block until window k has landed, then return its host (lo, hi)
+        int arrays (unfiltered) and free its slices.  Raises RuntimeError
+        on a failed or wedged stream."""
+        lo_w, hi_w = self.collect_range(self._cuts[k], self._cuts[k + 1],
+                                        timeout_s)
+        with self._cv:
+            self._consumed = max(self._consumed, k)
+            self._cv.notify_all()
+        return lo_w, hi_w
+
+    def collect_range(self, s0: int, s1: int,
+                      timeout_s: float | None = None):
+        if timeout_s is None:
+            # a generous watchdog: a wedged transfer must never hold the
+            # build forever
+            timeout_s = ((s1 - s0) * self.slice_len * self.bytes_per_link
+                         / 5e5 + 120.0)
+        deadline = time.monotonic() + timeout_s
+        with self._cv:
+            while self.done_slices < s1 and not self.failed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    self.failed = True
+                    break
+                self._cv.wait(min(left, 0.5))
+        if self.failed:
+            raise RuntimeError("window stream failed or timed out") \
+                from self.error
+        part = self._slices[s0:s1]
+        for i in range(s0, s1):  # bound resident memory to the window
+            self._slices[i] = None
+        return self._unpack(part)
+
+    def abort(self, timeout: float = 5.0) -> None:
+        self._abort = True
+        with self._cv:
+            self._cv.notify_all()
+        self.join(timeout, mark_failed=False)
 
 
 def _as_u32(a: np.ndarray) -> np.ndarray:
@@ -268,13 +613,122 @@ def _as_u32(a: np.ndarray) -> np.ndarray:
     return a.astype(np.uint32, copy=False)
 
 
+def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
+                 pst_h, accumulate: bool, perf: dict | None):
+    """The streamed windowed handoff: fetch the reduced live set as W
+    ascending hi-quantile windows and fold each straight into the
+    resumable union-find.  Returns (parent, pst) uint32 [n], or None on
+    any failure (the caller then fetches the same device arrays
+    serially).
+
+    ``accumulate`` True: the windows carry the ORIGINAL link multiset
+    (immediate handoff, no reduce round), and the fold counts pst itself;
+    ``pst_h`` is not touched.  False: ``pst_h`` (an array or a zero-arg
+    callable) resolves after the stream has started, so a caller's pst
+    prefetch overlaps the first windows' fetch.
+    """
+    from ..core.forest import host_hi_window_bounds, links_fold
+
+    t_start = time.perf_counter()
+    w = handoff_windows(live, lo.device)
+    # SHEEP_STREAM_DEVICE_WINDOWS=1 runs the card's transfer path (device
+    # hi-sort + _WindowStream slices) on CPU tensors, for the tests
+    device_windows = lo.device.type != "cpu" \
+        or os.environ.get("SHEEP_STREAM_DEVICE_WINDOWS", "") == "1"
+    stream = None
+    fetch_s: list = []
+    fold_s: list = []
+    pst_wait_s = 0.0
+    links_folded = 0
+    try:
+        if device_windows:
+            slo, shi = sort_links_by_hi(lo, hi)
+            slice_links = int(os.environ.get("SHEEP_OVERLAP_SLICE",
+                                             str(1 << 18)))
+            stream = _WindowStream(slo, shi, n, live, slice_links, w)
+            del slo, shi
+            w = stream.windows
+
+            def windows_iter():
+                for k in range(w):
+                    yield stream.window(k)
+        else:
+            # the CPU: the fetch is a view, the windows split on the host
+            # by the shared quantile rule
+            def windows_iter():
+                lo_h = _np(lo)[:live]
+                hi_h = _np(hi)[:live]
+                keep = lo_h < n
+                if w == 1:
+                    yield lo_h[keep], hi_h[keep]
+                    return
+                lo_k = lo_h[keep]
+                hi_k = hi_h[keep]
+                bounds = host_hi_window_bounds(hi_k[hi_k < n], w, n)
+                for k in range(w):
+                    sel = hi_k >= bounds[k]
+                    if k + 1 < w:  # the last window keeps any pst-only tail
+                        sel &= hi_k < bounds[k + 1]
+                    yield lo_k[sel], hi_k[sel]
+
+        it = windows_iter()
+        pst_arr = None
+        if not accumulate:
+            t0 = time.perf_counter()
+            pst_arr = _as_u32(pst_h() if callable(pst_h) else pst_h)
+            pst_wait_s = time.perf_counter() - t0
+        fold = links_fold(n, pst_arr)
+        for _ in range(w):
+            with _timed(fetch_s):
+                wlo, whi = next(it)
+                keep = wlo < n
+                if not keep.all():
+                    wlo, whi = wlo[keep], whi[keep]
+            with _timed(fold_s):
+                fold.block(_as_u32(wlo), _as_u32(whi))
+            links_folded += len(wlo)
+        parent, pst_out = fold.finish()
+    except Exception as exc:
+        if stream is not None:
+            stream.abort()
+        if perf is not None:
+            perf["stream_mode"] = f"fallback:{type(exc).__name__}"
+        return None
+    if perf is not None:
+        wall = time.perf_counter() - t_start
+        fetch_busy = stream.busy_s if stream is not None else sum(fetch_s)
+        perf.update({
+            "stream_mode": "windowed",
+            "fetch_windows": w,
+            "window_fetch_s": [round(x, 4) for x in fetch_s],
+            "window_fold_s": [round(x, 4) for x in fold_s],
+            "fold_s": round(sum(fold_s), 4),
+            "pst_wait_s": round(pst_wait_s, 4),
+            **overlap_stats(fetch_busy + sum(fold_s), wall),
+            "handoff_links": links_folded,
+            "packed_handoff": stream.packed if stream is not None
+            else False,
+        })
+    return parent, pst_out
+
+
 def reduce_and_fetch_links(lo, hi, n: int, stop_live: int,
                            handoff_input: bool = False, perf=None):
-    """The reduce + serial fetch middle of the hybrid.  Returns (kind, a,
-    b, live, rounds): kind "device" (converged before the threshold; a/b
-    are device link tensors) or "host" (a/b are the fetched, lo<n-filtered
+    """The serial arm's reduce + fetch.  Returns (kind, a, b, live,
+    rounds): kind "device" (converged before the threshold; a/b are
+    device link tensors) or "host" (a/b are the fetched, lo<n-filtered
     host link arrays).  ``perf`` gains loop_s, fetch_tail_s, rounds, live
-    and, on a handoff, handoff_links and packed_handoff."""
+    and, on a handoff, handoff_links and packed_handoff.
+
+    Raises NotImplementedError where the reference would run its
+    speculative overlapped snapshot instead (:func:`_overlap_enabled`)."""
+    if _overlap_enabled(lo.device):
+        raise NotImplementedError(
+            "the speculative overlapped handoff (the reference's "
+            "_SpecHandoff: SHEEP_STREAM_HANDOFF=0 with SHEEP_OVERLAP_HANDOFF "
+            "on, the default on CUDA) is not ported (ROADMAP.md, port queue "
+            "item 1); set SHEEP_OVERLAP_HANDOFF=0 for the serial handoff, "
+            "or leave SHEEP_STREAM_HANDOFF on")
     t0 = time.perf_counter()
     lo, hi, live, rounds, converged = reduce_links_hosted(
         lo, hi, n, stop_live=stop_live, handoff_input=handoff_input)
@@ -295,37 +749,87 @@ def reduce_and_fetch_links(lo, hi, n: int, stop_live: int,
     return "host", lo_h, hi_h, int(live), rounds
 
 
-def reduce_and_finish_native(lo, hi, n: int, stop_live: int,
-                             handoff_input: bool = False, pst_h=None,
-                             perf=None):
-    """Reduce + serial handoff + native fold.  Returns ("device", lo, hi,
-    live, rounds) when the loop converged before the threshold, else
-    ("forest", parent, pst, live, rounds) with parent/pst uint32 [n].
-    ``pst_h``: the prep-time pst, an array or a zero-arg callable resolved
-    after the fetch.  ``perf`` also gains pst_wait_s (resolving pst_h)
-    and fold_s (the fold alone), both added into fetch_tail_s."""
-    kind, a, b, live, rounds = reduce_and_fetch_links(
-        lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
-        perf=perf)
-    if kind == "device":
-        return "device", a, b, live, rounds
+def _serial_fold(lo_h, hi_h, n: int, pst_h, perf) -> tuple:
+    """Resolve ``pst_h`` (None: the fold counts pst), then the monolithic
+    fold; ``perf`` gains pst_wait_s and fold_s."""
     t0 = time.perf_counter()
     if callable(pst_h):
         pst_h = pst_h()
     t1 = time.perf_counter()
-    parent, pst = finish_native_host(a, b, n, pst_h)
+    out = finish_native_host(lo_h, hi_h, n, pst_h)
     if perf is not None:
         perf["pst_wait_s"] = round(t1 - t0, 4)
         perf["fold_s"] = round(time.perf_counter() - t1, 4)
-        perf["fetch_tail_s"] = round(
-            perf.get("fetch_tail_s", 0.0) + perf["pst_wait_s"]
-            + perf["fold_s"], 4)
-    return "forest", parent, pst, live, rounds
+    return out
+
+
+def reduce_and_finish_native(lo, hi, n: int, stop_live: int,
+                             handoff_input: bool = False, pst_h=None,
+                             accumulate_pst_ok: bool = False, perf=None):
+    """Reduce + handoff + native fold: the streamed windowed tail when
+    :func:`stream_handoff_enabled` (any stream failure falls back to a
+    serial fetch of the same device arrays), else the serial arm.
+
+    Returns ("device", lo, hi, live, rounds) when the loop converged
+    before the threshold, else ("forest", parent, pst, live, rounds) with
+    parent/pst uint32 [n].  ``pst_h``: the prep-time pst, an array or a
+    zero-arg callable, consulted only when the fold cannot count pst
+    itself.  ``accumulate_pst_ok``: the caller vouches that the INPUT
+    links are the original multiset with no pst-only record masked out;
+    the fold then counts pst whenever the loop took the immediate handoff
+    (zero rounds).  ``perf`` gains loop_s, rounds, live, fetch_tail_s
+    (the whole tail: fetch, pst wait and fold, minus their overlap),
+    pst_wait_s, fold_s, handoff_links, packed_handoff, fetch_windows (0
+    on the serial arm) and the streamed tail's keys."""
+    if not stream_handoff_enabled():
+        kind, a, b, live, rounds = reduce_and_fetch_links(
+            lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
+            perf=perf)
+        if kind == "device":
+            return "device", a, b, live, rounds
+        parent, pst = _serial_fold(a, b, n, pst_h, perf)
+        if perf is not None:
+            perf["fetch_tail_s"] = round(
+                perf.get("fetch_tail_s", 0.0) + perf["pst_wait_s"]
+                + perf["fold_s"], 4)
+            perf["fetch_windows"] = 0
+        return "forest", parent, pst, live, rounds
+    t0 = time.perf_counter()
+    # handoff_sort=False: the streamed tail sorts by hi for its windows
+    lo, hi, live, rounds, converged = reduce_links_hosted(
+        lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
+        handoff_sort=False)
+    t1 = time.perf_counter()
+    if perf is not None:
+        perf["loop_s"] = round(t1 - t0, 4)
+        perf["rounds"] = int(rounds)
+        perf["live"] = int(live)
+    if converged:
+        if perf is not None:
+            perf["fetch_tail_s"] = 0.0
+        return "device", lo, hi, int(live), rounds
+    accumulate = accumulate_pst_ok and rounds == 0
+    out = _stream_tail(lo, hi, int(live), n, pst_h, accumulate, perf)
+    if out is None:
+        # the stream failed: serial fetch of the SAME device arrays and
+        # the monolithic fold; ``accumulate`` holds for it too (same
+        # multiset), so the fold counts pst exactly as planned
+        lo_h, hi_h, packed = fetch_links_host(lo, hi, int(live), n)
+        if perf is not None:
+            perf["handoff_links"] = int(len(lo_h))
+            perf["packed_handoff"] = packed
+        out = _serial_fold(lo_h, hi_h, n, None if accumulate else pst_h,
+                           perf)
+    parent, pst = out
+    if perf is not None:
+        perf["fetch_tail_s"] = round(time.perf_counter() - t1, 4)
+    return "forest", parent, pst, int(live), rounds
 
 
 def finish_native_host(lo_h: np.ndarray, hi_h: np.ndarray, n: int, pst_h):
     """Exact union-find tail on host link arrays: returns (parent, pst)
-    uint32 [n].  pst_h may be a zero-arg callable, resolved here."""
+    uint32 [n].  pst_h may be a zero-arg callable, resolved here, or None
+    (the fold counts pst from the links)."""
     from .. import native
 
     if callable(pst_h):

@@ -405,7 +405,8 @@ def _depth_tier(size: int, pad: int, in_schedule: bool, levels: int,
 def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
                         stop_live: int = 0, levels: int = 10,
                         jrounds: int = 8, first_levels: int = 4,
-                        handoff_input: bool = False):
+                        handoff_input: bool = False,
+                        handoff_sort: bool = True):
     """Run chunk rounds until convergence (or until live <= stop_live),
     compacting between chunks.
 
@@ -422,7 +423,9 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
     count plateaus, host assists take over the straggler crawl
     (:class:`_PlateauSched`).  ``handoff_input`` with an input already at
     or under ``stop_live`` skips the rounds (the output goes straight to
-    the native fold; one plain sort first at n >= 2^21).
+    the native fold; one plain sort first at n >= 2^21, which
+    ``handoff_sort`` False skips: the streamed tail orders its windows
+    by hi itself).
     """
     lo, hi = _i32(lo), _i32(hi)
     e = int(lo.shape[0])
@@ -434,7 +437,7 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
         lo = torch.cat([lo, fill])
         hi = torch.cat([hi, fill])
     if handoff_input and stop_live and e <= stop_live:
-        if n >= (1 << 21):
+        if n >= (1 << 21) and handoff_sort:
             lo, hi = sort_links(lo, hi)
         return lo, hi, e, 0, False
     rounds = 0

@@ -20,13 +20,11 @@ launched), so a run can show that its main path went through K1.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 import threading
 
 import torch
 
-from ..buildlib import build_shared
+from ..buildlib import build_shared, nvcc_command
 
 _LIB_NAME = "libfused_jump.so"
 _lock = threading.Lock()
@@ -36,27 +34,12 @@ _lib: ctypes.CDLL | None = None
 launches = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: K1 (csrc/fused_jump.cu) cannot "
-                           "be built")
-    return path
-
-
 def load_library() -> ctypes.CDLL:
     """K1's library, compiled from the checkout's source if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            path = build_shared(
-                "fused_jump.cu", _LIB_NAME,
-                lambda src, out: [
-                    _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-Xptxas", "-v", "-o", out, src])
+            path = build_shared("fused_jump.cu", _LIB_NAME, nvcc_command)
             lib = ctypes.CDLL(path)
             lib.sheep_fused_jump.restype = ctypes.c_int
             lib.sheep_fused_jump.argtypes = [

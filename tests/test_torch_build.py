@@ -1,9 +1,9 @@
 """The port's build entry points (sheep_tpu_torch/ops/build.py) equal
 sheep_tpu's ops/build.py (JAX on the CPU) and the host oracle exactly.
 
-The port carries the reference's serial handoff tail, so the reference
-runs under SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0 (its serial arm,
-documented bit-identical to its streamed default)."""
+The hybrid's cases run on both handoff arms (the ``arm`` fixture), each
+package under the same knobs: the streamed windowed handoff, the default,
+and the serial arm (SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0)."""
 
 import contextlib
 import io
@@ -30,10 +30,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEP = os.path.join(REPO, "data", "hep-th.dat")
 
 
-@pytest.fixture
-def serial_reference(monkeypatch):
-    monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
+@pytest.fixture(params=["serial", "stream"])
+def arm(request, monkeypatch):
+    """The handoff arm, set for both packages: "serial" is one fetch and
+    one fold, "stream" the streamed windowed handoff (the default)."""
+    monkeypatch.setenv("SHEEP_STREAM_HANDOFF",
+                       "0" if request.param == "serial" else "1")
     monkeypatch.setenv("SHEEP_OVERLAP_HANDOFF", "0")
+    for k in ("SHEEP_HANDOFF_WINDOWS", "SHEEP_STREAM_DEVICE_WINDOWS",
+              "SHEEP_STREAM_HOST_SEQ"):
+        monkeypatch.delenv(k, raising=False)
+    return request.param
 
 
 def _graph(seed, n_max=200, e_max=1200):
@@ -99,7 +106,7 @@ def test_build_graph_device_rmat_and_empty():
 @pytest.mark.parametrize("host_edges", [False, True])
 @pytest.mark.parametrize("given", [False, True])
 @pytest.mark.parametrize("factor", ["1", "3", "8"])
-def test_build_graph_hybrid_matches_reference(serial_reference, monkeypatch,
+def test_build_graph_hybrid_matches_reference(arm, monkeypatch,
                                               factor, given, host_edges):
     monkeypatch.setenv("SHEEP_HANDOFF_FACTOR", factor)
     tail, head = _graph(950 + int(factor))
@@ -119,10 +126,13 @@ def test_build_graph_hybrid_matches_reference(serial_reference, monkeypatch,
 
 @pytest.mark.parametrize("packed", ["0", "1"])
 @pytest.mark.parametrize("pipeline", ["0", "1"])
-def test_build_graph_hybrid_knobs(serial_reference, monkeypatch, packed,
+def test_build_graph_hybrid_knobs(arm, monkeypatch, packed,
                                   pipeline):
     monkeypatch.setenv("SHEEP_PACK_HANDOFF", packed)
     monkeypatch.setenv("SHEEP_PIPELINE_CHUNKS", pipeline)
+    if arm == "stream":
+        # packing belongs to the card's window queue, forced here
+        monkeypatch.setenv("SHEEP_STREAM_DEVICE_WINDOWS", "1")
     tail, head = rmat_edges(13, 6 << 13, seed=11)
     perf = {}
     got = PB.build_graph_hybrid(tail, head, handoff_factor=2, perf=perf,
@@ -131,13 +141,20 @@ def test_build_graph_hybrid_knobs(serial_reference, monkeypatch, packed,
     _same(got, want)
     assert perf["packed_handoff"] == (packed == "1")
     assert perf["rounds"] > 0 and perf["handoff_links"] <= 2 * 8192
-    for key in ("loop_s", "fetch_tail_s", "fold_s", "pst_wait_s", "live",
-                "prefetch_s"):
+    keys = ("loop_s", "fetch_tail_s", "fold_s", "pst_wait_s", "live",
+            "fetch_windows")
+    if arm == "serial":
+        assert perf["fetch_windows"] == 0 and "prefetch_s" in perf
+    else:
+        # the CPU's streamed prep takes the host sequence: no prefetch
+        assert perf["stream_mode"] == "windowed" and "prefetch_s" not in perf
+        keys += ("window_fetch_s", "window_fold_s", "overlap_s",
+                 "overlap_frac")
+    for key in keys:
         assert key in perf
 
 
-def test_build_graph_hybrid_prefetch_failure_lazy_pst(serial_reference,
-                                                      monkeypatch):
+def test_build_graph_hybrid_prefetch_failure_lazy_pst(arm, monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("prefetch failure injected by test")
 
@@ -154,7 +171,7 @@ def test_build_graph_hybrid_prefetch_failure_lazy_pst(serial_reference,
             _same(got, want)
 
 
-def test_build_graph_hybrid_tensor_inputs(serial_reference):
+def test_build_graph_hybrid_tensor_inputs(arm):
     tail, head = _graph(960)
     n = int(max(tail.max(), head.max())) + 1
     t, h = edges_to_device(tail, head, "cpu")
@@ -213,7 +230,7 @@ def test_device_gates(monkeypatch):
 
 
 @pytest.mark.parametrize("build", ["hybrid", "device"])
-def test_hepth_golden_treefaqs(serial_reference, build):
+def test_hepth_golden_treefaqs(arm, build):
     el = load_edges(HEP)
     fn = PB.build_graph_hybrid if build == "hybrid" else PB.build_graph_device
     seq, forest = fn(el.tail, el.head, device="cpu")
@@ -232,12 +249,14 @@ def test_hepth_golden_treefaqs(serial_reference, build):
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_cuda_default_arm_on_cpu(serial_reference, monkeypatch, seed):
+def test_cuda_default_arm_on_cpu(arm, monkeypatch, seed):
     """The configuration CUDA runs by default (no immediate handoff,
-    pipelined chunks, packed fetch, stop at 3n), forced on the CPU for
-    both packages: reduce + fetch + fold must agree exactly."""
+    pipelined chunks, packed fetch, stop at 3n, and on the stream arm the
+    device window queue), forced on the CPU for both packages: reduce +
+    fetch + fold must agree exactly."""
     monkeypatch.setenv("SHEEP_PIPELINE_CHUNKS", "1")
     monkeypatch.setenv("SHEEP_PACK_HANDOFF", "1")
+    monkeypatch.setenv("SHEEP_STREAM_DEVICE_WINDOWS", "1")
     tail, head = rmat_edges(12, 8 << 12, seed=20 + seed)
     n = int(max(tail.max(), head.max())) + 1
     t, h = edges_to_device(tail, head, "cpu")
@@ -252,6 +271,8 @@ def test_cuda_default_arm_on_cpu(serial_reference, monkeypatch, seed):
     kind, a, b, live, rounds = RB.reduce_and_fetch_links(
         rlo, rhi, n, stop_live=3 * n, handoff_input=False)
     assert got[0] == "forest" and kind == "host" and perf["packed_handoff"]
+    assert perf.get("stream_mode") == (None if arm == "serial"
+                                       else "windowed")
     assert (got[3], got[4]) == (live, rounds)
     want = RB.finish_native_host(a, b, n, np.asarray(rpst).view(np.uint32))
     np.testing.assert_array_equal(got[1], want[0])

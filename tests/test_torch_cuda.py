@@ -1,8 +1,9 @@
-"""The port on the card: kernel K1 against its plain version, and the
-CUDA builds against the port's host oracle.
+"""The port on the card: kernels K1, P1 and P2 against their plain
+versions, and the CUDA builds (the hybrid on both handoff arms) against
+the port's host oracle.
 
-Marked ``cuda``; each test skips without a CUDA device (K1 is a CUDA
-kernel with no CPU or interpret mode).  This file imports no jax, so it
+Marked ``cuda``; each test skips without a CUDA device (the kernels are
+CUDA kernels with no CPU or interpret mode).  This file imports no jax, so it
 runs on the GPU machine, which has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -14,6 +15,7 @@ import torch
 
 from sheep_tpu_torch.core import build_forest, degree_sequence
 from sheep_tpu_torch.ops import fused_jump as pj
+from sheep_tpu_torch.ops import probe
 from sheep_tpu_torch.ops.build import build_graph_device, build_graph_hybrid
 from sheep_tpu_torch.ops.forest import min_up_table
 from sheep_tpu_torch.utils import rmat_edges
@@ -24,8 +26,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU "
-                    "or interpret mode")
+        pytest.skip("needs a CUDA device: the kernels are CUDA kernels "
+                    "with no CPU or interpret mode")
     return torch.device("cuda")
 
 
@@ -84,3 +86,74 @@ def test_cuda_build_equals_oracle(cuda, build):
     np.testing.assert_array_equal(seq, want_seq)
     np.testing.assert_array_equal(forest.parent, want.parent)
     np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1000, 1 << 18])
+def test_p1_add_one_equals_plain(cuda, n):
+    x = torch.arange(n, dtype=torch.int32, device=cuda)
+    x[:3] = torch.iinfo(torch.int32).max  # wraps as torch's x + 1
+    before = probe.launches["add_one"]
+    got = probe.add_one(x)
+    torch.cuda.synchronize()
+    assert probe.launches["add_one"] == before + 1
+    assert torch.equal(got, probe.add_one_plain(x))
+    if n % 256 == 0:
+        x2 = x.reshape(n // 256, 256)
+        assert torch.equal(probe.add_one(x2), x2 + 1)
+
+
+@pytest.mark.parametrize("lo_over", [0, 37])
+@pytest.mark.parametrize("log_n", [10, 18])
+def test_p2_jump_step_equals_plain(cuda, log_n, lo_over):
+    """The probe's input recipe, and lo drawn past the table (clamped)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    f = np.minimum(np.arange(n) + rng.integers(1, 64, n), n - 1)
+    lo = rng.integers(0, n + lo_over, n + 3)
+    hi = np.minimum(lo + rng.integers(1, 1024, n + 3), n + lo_over)
+    f, lo, hi = (torch.from_numpy(a.astype(np.int32)).to(cuda)
+                 for a in (f, lo, hi))
+    before = probe.launches["jump_step"]
+    got = probe.jump_step(f, lo, hi)
+    torch.cuda.synchronize()
+    assert probe.launches["jump_step"] == before + 1
+    assert torch.equal(got, probe.jump_step_plain(f, lo, hi))
+
+
+@pytest.mark.parametrize("arm", ["stream", "serial"])
+def test_cuda_hybrid_arms_equal_oracle(cuda, monkeypatch, arm):
+    """R-MAT 2^18 x 8 on the card: the streamed windowed tail (4 windows,
+    pinned slices on the side stream) and the serial arm."""
+    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_OVERLAP_HANDOFF",
+              "SHEEP_HANDOFF_FACTOR", "SHEEP_PACK_HANDOFF"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("SHEEP_HANDOFF_WINDOWS", "4")
+    # slices small enough that the 4 windows each get some (the stream
+    # caps the window count at the slice count)
+    monkeypatch.setenv("SHEEP_OVERLAP_SLICE", str(1 << 14))
+    if arm == "serial":
+        monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
+        monkeypatch.setenv("SHEEP_OVERLAP_HANDOFF", "0")
+    tail, head = rmat_edges(18, 8 << 18, seed=6)
+    want_seq = degree_sequence(tail, head)
+    want = build_forest(tail, head, want_seq)
+    perf = {}
+    pj.launches = 0
+    seq, forest = build_graph_hybrid(tail, head, perf=perf)
+    assert pj.launches > 0
+    if arm == "stream":
+        assert perf["stream_mode"] == "windowed", perf
+        assert perf["fetch_windows"] == 4 and perf["packed_handoff"]
+    else:
+        assert "stream_mode" not in perf and perf["fetch_windows"] == 0
+    np.testing.assert_array_equal(seq, want_seq)
+    np.testing.assert_array_equal(forest.parent, want.parent)
+    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+
+
+def test_cuda_speculative_arm_raises(cuda, monkeypatch):
+    monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
+    monkeypatch.delenv("SHEEP_OVERLAP_HANDOFF", raising=False)
+    tail, head = rmat_edges(12, 8 << 12, seed=2)
+    with pytest.raises(NotImplementedError):
+        build_graph_hybrid(tail, head)

@@ -36,7 +36,9 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_every_module_loads_no_jax_and_no_sheep_tpu():
     mods = _modules()
-    assert "sheep_tpu_torch.ops.build" in mods
+    for mod in ("sheep_tpu_torch.ops.build", "sheep_tpu_torch.ops.probe",
+                "sheep_tpu_torch.scripts.kernel_probe"):
+        assert mod in mods
     prog = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -93,6 +95,15 @@ def test_entry_points_default_to_cuda():
             fn(tail, head)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(tail, head, device="cuda")
+
+
+def test_probe_tool_defaults_to_cuda(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    from sheep_tpu_torch.scripts import kernel_probe
+
+    assert kernel_probe.main(["10"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().out
 
 
 def test_resolve_device():
