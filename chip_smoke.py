@@ -10,12 +10,19 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
 2. build K1 (csrc/fused_jump.cu), P1 and P2 (csrc/probe_kernels.cu), both
    with nvcc, and the host fold (csrc/host_fold.cpp, g++), in parallel;
 3. K1 against its plain torch version on the card: the six
-   tests/test_pallas_jump.py cases, a ragged E, and the real-size case
-   n = 2^23, E = 2^26 at L = 4 and L = 16 — lo and moved exactly equal;
-   kernel_ms / plain_ms (CUDA events, median of 7 after warm-up) and
-   bound_ms (bytes over 3.35 TB/s);
+   tests/test_pallas_jump.py cases, a ragged E, groupings forced to
+   g = 1, 2 and L tables a launch (a small ``l2_bytes`` to the planner)
+   on aligned, offset (storage offset 1-3) and E % 4 != 0 inputs,
+   random links at E = 2^26, L = 4 for n = 2^21 and 2^22, and the
+   real-size case n = 2^23, E = 2^26 at L = 4 and L = 16 — lo and
+   moved exactly equal, and one launch per planned group; three orders
+   (planned groups, one pass over all L tables, one launch per table)
+   and the plain version timed in turns (CUDA events around 10 calls
+   back to back, median of 7 after warm-up), with bound_ms (bytes over
+   3.35 TB/s);
 4. P1 and P2 against their plain versions at n = 2^18 (the probe's
-   default), 2^20 and 2^24, exactly equal, with kernel_ms, plain_ms,
+   default), 2^20 and 2^24, and P1 also at 2^24 + 3 and on views at
+   storage offsets 1-3, exactly equal, with kernel_ms, plain_ms,
    bound_ms and library_ms timed the same way; then the probe tool's
    ``main`` once at its default size, which must report both kernels
    right and launch both;
@@ -25,7 +32,11 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    (com-LiveJournal scale) on the default tail, the streamed windowed
    handoff, which must report stream_mode "windowed" and 4 windows, then
    once on the serial arm (SHEEP_STREAM_HANDOFF=0
-   SHEEP_OVERLAP_HANDOFF=0); every run equals the host oracle bit for bit;
+   SHEEP_OVERLAP_HANDOFF=0); every run equals the host oracle bit for bit.
+   The first run records the shape (width, E, L, sorted or not, groups)
+   and device time of every K1 call and keeps the first chunk round's
+   input, on which K1's three orders are then timed against the plain
+   version as in phase 3;
 7. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
 8. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -41,6 +52,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -71,30 +83,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, device: torch.device, reps: int = 7, warmup: int = 2):
-    """Median ms of ``fn`` (CUDA events on the card)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-    else:
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def build_kernels() -> float:
+    """Build every native library in parallel and print ptxas's report;
+    a kernel that spills registers fails the run."""
     from sheep_tpu_torch import native
     from sheep_tpu_torch.buildlib import BUILD_LOGS
     from sheep_tpu_torch.ops import fused_jump, probe
@@ -107,10 +98,50 @@ def build_kernels() -> float:
         for fut in futs:
             fut.result()
     secs = time.perf_counter() - t0
+    spills = []
     for name, text in sorted(BUILD_LOGS.items()):
         for line in text.strip().splitlines():
             log(f"build {name}: {line}")
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            if found and found.groups() != ("0", "0"):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
     return secs
+
+
+def time_turns(fns: dict, device: torch.device, reps: int = 7,
+               batch: int = 10, warmup: int = 2) -> dict:
+    """Median ms of one call of each of ``fns`` (name -> callable), run in
+    turns: each repetition runs every function ``batch`` times back to
+    back between its own CUDA events (host clock on the CPU), so the
+    card's queue hides the host's launch cost and the events time the
+    device; a sample is the pair's time over ``batch``."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    times = {name: [] for name in fns}
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    for _ in range(reps):
+        for name, fn in fns.items():
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            for _ in range(batch):
+                fn()
+            if cuda:
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end)
+            else:
+                ms = (time.perf_counter() - t0) * 1e3
+            times[name].append(ms / batch)
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def k1_inputs(n: int, e: int, seed: int, device: torch.device):
@@ -126,42 +157,107 @@ def k1_inputs(n: int, e: int, seed: int, device: torch.device):
     return lo, hi
 
 
-def per_level(jump, tables, lo, hi):
-    for k in range(tables.shape[0]):
-        lo = jump(tables[k:k + 1], lo, hi)
-    return lo
+def k1_bound_ms(e: int, levels: int, width: int) -> float:
+    """K1's least time: lo, hi read and out written once (12 bytes a
+    link), each table read once, over the card's memory rate."""
+    return (12 * e + 4 * levels * width) / HBM_BYTES_PER_S * 1e3
 
 
-def k1_case(name: str, lo, hi, n: int, levels: int, device, timed: bool):
-    """K1 against fused_descend_plain on one input: exact lo and moved."""
+def k1_orders(tables, lo, hi, device, sorted_links: bool = False) -> dict:
+    """K1's three orders on one input, each exactly equal to
+    jump_group_plain and timed in turns with it: the planned groups (the
+    main path's order: one pass for sorted links, else L2-sized groups),
+    one pass over all tables, and one launch per table."""
+    from sheep_tpu_torch.ops.fused_jump import (
+        descend_groups, jump_group_cuda, jump_group_plain, l2_cache_bytes,
+        plan_groups)
+
+    levels, width = tables.shape
+    groups = plan_groups(levels, width, l2_cache_bytes(lo.device),
+                         sorted_links)
+    per_table = [(k, k + 1) for k in range(levels)]
+    fns = {"kernel_ms": lambda: descend_groups(tables, lo, hi, groups),
+           "one_pass_ms": lambda: jump_group_cuda(tables, lo, hi),
+           "per_table_ms": lambda: descend_groups(tables, lo, hi, per_table),
+           "plain_ms": lambda: jump_group_plain(tables, lo, hi)}
+    want = fns["plain_ms"]()
+    for name in ("kernel_ms", "one_pass_ms", "per_table_ms"):
+        got = fns[name]()
+        if not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max())
+            raise AssertionError(f"K1 ({name[:-3]} order) disagrees with "
+                                 f"its plain version: max_abs_err={err}")
+    return {"groups": groups, **time_turns(fns, device),
+            "bound_ms": k1_bound_ms(int(lo.shape[0]), levels, width)}
+
+
+def k1_case(name: str, lo, hi, n: int, levels: int, device, timed: bool,
+            f=None, sorted_links: bool = False):
+    """K1 against fused_descend_plain on one input (f: the one-step table,
+    the links' own min-up table if None): exact lo and moved."""
     from sheep_tpu_torch.ops.forest import min_up_table
     from sheep_tpu_torch.ops.fused_jump import (
-        fused_descend, fused_descend_plain, jump_group, jump_group_plain,
-        lift_tables)
+        fused_descend, fused_descend_plain, lift_tables)
 
     e = int(lo.shape[0])
-    f = min_up_table(lo, hi, n)
-    got_lo, got_moved = fused_descend(lo, hi, n, levels, f)
+    if f is None:
+        f = min_up_table(lo, hi, n)
+    got_lo, got_moved = fused_descend(lo, hi, n, levels, f, sorted_links)
     want_lo, want_moved = fused_descend_plain(lo, hi, n, levels, f)
     err = int((got_lo.long() - want_lo.long()).abs().max()) if e else 0
     equal = torch.equal(got_lo, want_lo) and int(got_moved) == int(want_moved)
-    rec = {"case": name, "n": n, "E": e, "L": levels, "equal": equal,
+    rec = {"case": name, "n": n, "E": e, "L": levels,
+           "sorted_links": sorted_links, "equal": equal,
            "max_abs_err": err, "moved": int(got_moved)}
-    if timed:
-        tables = lift_tables(f, levels)
-        rec["kernel_ms"] = time_ms(lambda: jump_group(tables, lo, hi), device)
-        rec["plain_ms"] = time_ms(lambda: jump_group_plain(tables, lo, hi),
-                                  device)
-        # the same kernel launched once per table (level-major order): a
-        # measurement of the alternative order, not the main path's
-        rec["kernel_per_level_ms"] = time_ms(
-            lambda: per_level(jump_group, tables, lo, hi), device)
-        rec["bound_ms"] = (8 * e + 4 * e + 4 * levels * (n + 1)) \
-            / HBM_BYTES_PER_S * 1e3
+    if timed and equal:
+        rec.update(k1_orders(lift_tables(f, levels), lo, hi, device,
+                             sorted_links))
     log("k1 " + json.dumps(rec))
     if not equal:
         raise AssertionError(f"K1 disagrees with its plain version: {rec}")
     return rec
+
+
+def k1_forced_groups(device: torch.device, n: int = 1 << 16,
+                     levels: int = 7, e: int = 200_000):
+    """Groupings forced on the card: a small ``l2_bytes`` makes the
+    planner give g = 1, 2 and L tables a launch.  Each on aligned inputs,
+    on views at storage offsets 1-3 (the kernel's scalar path) and at
+    E % 4 = 1, 2, 3 (its tail), exactly equal to jump_group_plain, with
+    one launch per group."""
+    from sheep_tpu_torch.ops import fused_jump
+    from sheep_tpu_torch.ops.forest import min_up_table
+
+    width = n + 1
+    base_lo, base_hi = k1_inputs(n, e + 8, 9, device)
+    tables = fused_jump.lift_tables(min_up_table(base_lo, base_hi, n),
+                                    levels)
+    layouts = [("aligned", 0, e)] + [(f"offset{k}", k, e) for k in (1, 2, 3)] \
+        + [(f"tail{k}", 0, e + k) for k in (1, 2, 3)]
+    recs = []
+    for g in (1, 2, levels):
+        l2 = int(g * 4 * width / fused_jump.L2_TABLE_SHARE) + 64
+        groups = fused_jump.plan_groups(levels, width, l2)
+        if len(groups) != -(-levels // g):
+            raise AssertionError(f"plan_groups at l2_bytes={l2} gave "
+                                 f"{groups}, not groups of {g}")
+        for layout, off, size in layouts:
+            lo = base_lo[off:off + size]
+            hi = base_hi[off:off + size]
+            before = fused_jump.launches
+            got = fused_jump.descend_groups(tables, lo, hi, groups)
+            launched = fused_jump.launches - before
+            want = fused_jump.jump_group_plain(tables, lo, hi)
+            equal = torch.equal(got, want)
+            rec = {"case": f"forced_g{g}_{layout}", "n": n, "E": size,
+                   "L": levels, "groups": len(groups), "launches": launched,
+                   "equal": equal,
+                   "max_abs_err": int((got.long() - want.long()).abs().max())}
+            log("k1 " + json.dumps(rec))
+            if not equal or launched != len(groups):
+                raise AssertionError(f"K1 forced grouping failed: {rec}")
+            recs.append(rec)
+    return recs
 
 
 def k1_phase(device: torch.device, real_log_n: int = 23,
@@ -181,9 +277,17 @@ def k1_phase(device: torch.device, real_log_n: int = 23,
         hi = torch.from_numpy(hi_np.astype(np.int32)).to(device)
         recs.append(k1_case(f"pallas_jump_{trial}", lo, hi, n, levels,
                             device, timed=False))
+    recs.extend(k1_forced_groups(device))
     n = 1 << 20
     lo, hi = k1_inputs(n, ragged_e, 7, device)
     recs.append(k1_case("ragged", lo, hi, n, 10, device, timed=True))
+    # random links at E = 2^26 and L = 4 over the n where one table goes
+    # from a sixth of the L2 to two thirds of it
+    for log_n in (real_log_n - 2, real_log_n - 1):
+        n = 1 << log_n
+        lo, hi = k1_inputs(n, 1 << real_log_e, 8, device)
+        recs.append(k1_case(f"n{log_n}_L4", lo, hi, n, 4, device,
+                            timed=True))
     n = 1 << real_log_n
     lo, hi = k1_inputs(n, 1 << real_log_e, 8, device)
     for levels in (4, 16):
@@ -230,19 +334,22 @@ def counted_build(fn, what: str):
 
 
 def probe_case(name: str, n: int, kernel, plain, args, device,
-               bytes_moved: int, library=None):
+               bytes_moved: int, library=None, layout: str = "aligned"):
     """One probe kernel against its plain version on one input: exactly
-    equal, then kernel_ms, plain_ms and library_ms (median of 7 after
-    warm-up) and bound_ms (bytes over the card's memory rate)."""
+    equal, then kernel_ms, plain_ms and library_ms timed in turns
+    (:func:`time_turns`) and bound_ms (bytes over the card's memory
+    rate)."""
     got = kernel(*args)
     want = plain(*args)
     equal = torch.equal(got, want)
     err = int((got.long() - want.long()).abs().max())
-    rec = {"kernel": name, "n": n, "equal": equal, "max_abs_err": err,
-           "kernel_ms": time_ms(lambda: kernel(*args), device),
-           "plain_ms": time_ms(lambda: plain(*args), device),
-           "library_ms": time_ms(lambda: library(*args), device)
-           if library is not None else None,
+    fns = {"kernel_ms": lambda: kernel(*args),
+           "plain_ms": lambda: plain(*args)}
+    if library is not None:
+        fns["library_ms"] = lambda: library(*args)
+    rec = {"kernel": name, "n": n, "layout": layout, "equal": equal,
+           "max_abs_err": err, "library_ms": None,
+           **time_turns(fns, device),
            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3}
     log("probe " + json.dumps(rec))
     if not equal:
@@ -271,6 +378,18 @@ def probe_phase(device: torch.device, log_ns=(18, 20, 24)):
         recs.append(probe_case("jump_step", n, probe.jump_step,
                                probe.jump_step_plain, args, device, 16 * n))
         del x, args
+    # P1's scalar path at the largest size: n % 4 != 0, and views at
+    # storage offsets 1-3 (not 16-byte aligned); INT32_MAX wraps
+    n = 1 << max(log_ns)
+    buf = torch.arange(n + 8, dtype=torch.int32, device=device)
+    buf[:8] = torch.iinfo(torch.int32).max
+    for layout, off, size in [("tail3", 0, n + 3)] + [
+            (f"offset{k}", k, n) for k in (1, 2, 3)]:
+        recs.append(probe_case("add_one", size, probe.add_one,
+                               probe.add_one_plain, (buf[off:off + size],),
+                               device, 8 * size, library=lambda a: a + 1,
+                               layout=layout))
+    del buf
     reset_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -356,8 +475,84 @@ def env_set(values: dict):
                 os.environ[k] = v
 
 
+class K1Recorder:
+    """Records every K1 call of one build, with no knob in the package: it
+    wraps the descent seam ``ops.forest._lift_descend`` and the launcher
+    ``ops.fused_jump.jump_group_cuda`` while it is entered.  Per descent:
+    the table width, E, L, whether the links came sorted, the launches it
+    made (one per table group) and their device time (CUDA events around
+    each launch); and a copy of the first chunk round's input (the second
+    descent: the first is the jump-only opener), moved to host memory when
+    the recorder exits."""
+
+    keep_call = 1
+
+    def __init__(self):
+        self.calls: list = []
+        self.events: list = []
+        self.kept: dict | None = None
+
+    def __enter__(self):
+        from sheep_tpu_torch.ops import forest, fused_jump
+
+        self._saved = (forest._lift_descend, fused_jump.jump_group_cuda)
+        descend, launch = self._saved
+
+        def recorded_launch(tables, lo, hi, out=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = launch(tables, lo, hi, out=out)
+            end.record()
+            self.events.append((start, end))
+            return got
+
+        def recorded_descend(lo, hi, n, levels, f, sorted_links=False):
+            if len(self.calls) == self.keep_call:
+                self.kept = {"lo": lo.to(torch.int32).contiguous().clone(),
+                             "hi": hi.to(torch.int32).contiguous().clone(),
+                             "f": f.to(torch.int32).clone(), "n": n,
+                             "levels": levels, "sorted_links": sorted_links}
+            before = fused_jump.launches
+            got = descend(lo, hi, n, levels, f, sorted_links)
+            self.calls.append({"width": int(f.shape[0]),
+                               "E": int(lo.shape[0]), "L": max(1, levels),
+                               "sorted_links": sorted_links,
+                               "groups": fused_jump.launches - before})
+            return got
+
+        forest._lift_descend = recorded_descend
+        fused_jump.jump_group_cuda = recorded_launch
+        return self
+
+    def __exit__(self, *exc):
+        from sheep_tpu_torch.ops import forest, fused_jump
+
+        forest._lift_descend, fused_jump.jump_group_cuda = self._saved
+        if self.kept is not None:
+            # host memory from here on, so the later builds' peak device
+            # memory does not count it
+            self.kept = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                         for k, v in self.kept.items()}
+        return False
+
+    def device_ms(self) -> float:
+        """K1's summed device time over the recorded launches; each call's
+        own goes into its record as ``ms``."""
+        if self.events:
+            self.events[-1][1].synchronize()
+        times = [a.elapsed_time(b) for a, b in self.events]
+        first = 0
+        for call in self.calls:
+            call["ms"] = sum(times[first:first + call["groups"]])
+            first += call["groups"]
+        return sum(times)
+
+
 def real_size_phase(device: torch.device, log_n: int = 23,
                     log_e: int = 26, runs: int = 2, windows: int = 4):
+    """The real-size hybrid on both arms; returns the runs' records and
+    the first run's K1 recorder."""
     from sheep_tpu_torch.ops.build import build_graph_hybrid
     from sheep_tpu_torch.utils import rmat_edges
 
@@ -368,6 +563,7 @@ def real_size_phase(device: torch.device, log_n: int = 23,
     want_seq, want, oracle_s = oracle(tail, head)
     log(f"real: host oracle in {oracle_s:.2f}s, m={len(want_seq)}")
     recs = []
+    recorder = K1Recorder()
     # the default tail (streamed) runs first and last, the serial arm
     # between, so the two arms meet on one card in turns
     arms = ["stream"] * (runs - 1) + ["serial", "stream"]
@@ -375,7 +571,8 @@ def real_size_phase(device: torch.device, log_n: int = 23,
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         perf: dict = {}
-        with env_set(SERIAL_ARM if arm == "serial" else {}):
+        with env_set(SERIAL_ARM if arm == "serial" else {}), \
+                (recorder if run == 0 else contextlib.nullcontext()):
             (seq, forest), wall, launches = counted_build(
                 lambda: build_graph_hybrid(tail, head, device=device,
                                            perf=perf),
@@ -386,6 +583,9 @@ def real_size_phase(device: torch.device, log_n: int = 23,
         rec = {"run": run, "arm": arm, "records": len(tail), "wall_s": wall,
                "records_per_s": len(tail) / wall,
                "k1_launches": launches, **perf}
+        if run == 0:
+            rec["k1_device_ms"] = recorder.device_ms()
+            rec["k1_calls"] = recorder.calls
         if device.type == "cuda":
             rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         log("real hybrid " + json.dumps(rec))
@@ -397,7 +597,10 @@ def real_size_phase(device: torch.device, log_n: int = 23,
                 f"{perf.get('stream_mode')} "
                 f"fetch_windows={perf.get('fetch_windows')}")
         recs.append(rec)
-    return recs
+    if recorder.kept is None:
+        raise AssertionError(f"real-size hybrid: no chunk round reached K1 "
+                             f"({recorder.calls})")
+    return recs, recorder
 
 
 def device_phase(device: torch.device, log_n: int = 20, log_e: int = 23):
@@ -430,7 +633,14 @@ def main() -> int:
     k1 = k1_phase(device)
     probes, _, probe_counts = probe_phase(device)
     golden_phase(device)
-    real = real_size_phase(device)
+    real, recorder = real_size_phase(device)
+    kept = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+            for k, v in recorder.kept.items()}
+    k1.append(k1_case("main_path", kept["lo"], kept["hi"], kept["n"],
+                      kept["levels"], device, timed=True, f=kept["f"],
+                      sorted_links=kept["sorted_links"]))
+    del kept
+    recorder.kept = None
     device_phase(device)
     main_run = real[-1]
     timed = next(r for r in k1 if r["case"] == "real_L4")
@@ -446,6 +656,9 @@ def main() -> int:
         "bound_ms": timed["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "case": f"n={timed['n']} E={timed['E']} L={timed['L']}",
+        # the first real-size run's K1 calls and their summed device time
+        "main_path_calls": real[0]["k1_calls"],
+        "main_path_ms": real[0]["k1_device_ms"],
     }]
     probe_kernels = (
         ("add_one", "add_one_plain", "scripts/pallas_probe.py:42",
@@ -454,7 +667,8 @@ def main() -> int:
          "none: a gather, a compare and a select are three calls"))
     for name, plain, replaces, library in probe_kernels:
         cases = [r for r in probes if r["kernel"] == name]
-        big = max(cases, key=lambda r: r["n"])
+        big = max((r for r in cases if r["layout"] == "aligned"),
+                  key=lambda r: r["n"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "sheep_tpu_torch/csrc/probe_kernels.cu",

@@ -15,12 +15,24 @@
 //
 // What bounds them on this card: bytes.  P1 reads 4 and writes 4 bytes per
 // element (8n); P2 reads lo, hi and one gathered f entry and writes out
-// (16n, counting f once).  Neither does arithmetic to speak of.  Design:
-// one thread per element over a grid-stride loop, neighbouring threads on
-// neighbouring addresses so every lo/hi/x/out access coalesces; P2's
-// gather goes through the read-only path (__ldg).  The TPU versions stage
-// whole arrays through VMEM; here nothing is staged, since each element is
-// touched once.
+// (16n, counting f once).  Neither does arithmetic to speak of.  The TPU
+// versions stage whole arrays through VMEM; here nothing is staged, since
+// each element is touched once.
+//
+// P1's design: a streaming kernel reaches the memory rate only with enough
+// bytes in flight, so each thread moves 16 bytes a load: four int32 lanes
+// as one int4 load and one int4 store when x and out are both 16-byte
+// aligned.  Otherwise (a view at an odd storage offset), and for the n % 4
+// tail, each thread takes four scalar elements, one blockDim apart so every
+// warp access still coalesces.  The grid covers the whole array, one int4
+// a thread, so blocks start and retire in address order and the addresses
+// in flight stay in one window (a grid capped at the kernel's occupancy,
+// each thread striding over the array, ran measurably slower on one H100
+// at 2^24 and 2^26, however many loads a thread kept in flight).
+//
+// P2's design: one thread per element over a grid-stride loop, neighbouring
+// threads on neighbouring addresses so every lo/hi/out access coalesces;
+// the gather goes through the read-only path (__ldg).
 //
 // Plain C interface; each launches on the caller's stream, allocates
 // nothing, does not synchronise, and returns cudaGetLastError().
@@ -33,17 +45,50 @@
 namespace {
 
 constexpr int kThreads = 256;
-// resident blocks per SM at kThreads (2048 threads per SM on Hopper)
+// P2's resident blocks per SM at kThreads (2048 threads per SM on Hopper)
 constexpr int kBlocksPerSm = 8;
+
+constexpr int kLanes = 4;  // P1's elements a thread
+
+// unsigned add: wraps at INT32_MAX as torch's int32 x + 1 does
+__device__ __forceinline__ int32_t plus_one(int32_t v) {
+  return (int32_t)((uint32_t)v + 1u);
+}
 
 __global__ void __launch_bounds__(kThreads)
 add_one_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
-               int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    // unsigned add: wraps at INT32_MAX as torch's int32 x + 1 does
-    out[i] = (int32_t)((uint32_t)__ldg(x + i) + 1u);
+               int64_t n, int vec) {
+  const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
+  int64_t done = 0;
+  if (vec) {
+    const int64_t quads = n / kLanes;
+    const int4* x4 = reinterpret_cast<const int4*>(x);
+    int4* out4 = reinterpret_cast<int4*>(out);
+    for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+         q < quads; q += nthreads) {
+      const int4 v = __ldg(x4 + q);
+      out4[q] = make_int4(plus_one(v.x), plus_one(v.y), plus_one(v.z),
+                          plus_one(v.w));
+    }
+    done = quads * kLanes;
+  }
+  // scalar elements: all of them when a pointer is not 16-byte aligned,
+  // else the n % 4 tail
+  const int64_t span = (int64_t)kLanes * blockDim.x;
+  for (int64_t base = done + (int64_t)blockIdx.x * span; base < n;
+       base += (int64_t)gridDim.x * span) {
+    int32_t v[kLanes];
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      const int64_t i = base + (int64_t)j * blockDim.x + threadIdx.x;
+      v[j] = i < n ? __ldg(x + i) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      const int64_t i = base + (int64_t)j * blockDim.x + threadIdx.x;
+      if (i < n) out[i] = plus_one(v[j]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -61,7 +106,7 @@ jump_step_kernel(const int32_t* __restrict__ f, int64_t width,
   }
 }
 
-// Blocks for a grid-stride launch over n elements: enough to fill every
+// Blocks for P2's grid-stride launch over n elements: enough to fill every
 // SM, never more than the elements need.
 int grid_for(int64_t n, int* blocks) {
   static int sms = 0;
@@ -78,6 +123,15 @@ int grid_for(int64_t n, int* blocks) {
   return 0;
 }
 
+// Blocks for P1's launch over n elements: one int4 (or four scalar
+// elements) a thread, all in one grid.
+int add_one_grid(int64_t n, int* blocks) {
+  const int64_t per_block = (int64_t)kLanes * kThreads;
+  const int64_t b = (n + per_block - 1) / per_block;
+  *blocks = (int)(b < INT32_MAX ? b : INT32_MAX);
+  return 0;
+}
+
 }  // namespace
 
 // x, out: int32 [n], contiguous; stream: a cudaStream_t
@@ -85,9 +139,11 @@ extern "C" int sheep_probe_add_one(const int32_t* x, int32_t* out, int64_t n,
                                    void* stream) {
   if (n <= 0) return 0;
   int blocks = 0;
-  const int err = grid_for(n, &blocks);
+  const int err = add_one_grid(n, &blocks);
   if (err) return err;
-  add_one_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, out, n);
+  const int vec = ((uintptr_t)x | (uintptr_t)out) % 16 == 0;
+  add_one_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, out, n,
+                                                                vec);
   return (int)cudaGetLastError();
 }
 

@@ -89,20 +89,24 @@ def min_up_table(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _lift_descend(lo: torch.Tensor, hi: torch.Tensor, n: int, levels: int,
-                  f: torch.Tensor):
+                  f: torch.Tensor, sorted_links: bool = False):
     """Binary-lifting descent through a given table f [n+1]: advance each
     lo to its maximal f-ancestor strictly below hi.  Returns (lo, moved).
-    The seam of kernel K1: on CUDA the descent always runs through it,
-    on the CPU through its plain version."""
+    The seam of kernel K1: on CUDA the descent always runs through it (in
+    one pass when ``sorted_links`` says the links come from sort_links,
+    else in L2-sized table groups), on the CPU through its plain
+    version."""
     if lo.device.type == "cuda":
-        return fused_descend(lo, hi, n, levels, f)
+        return fused_descend(lo, hi, n, levels, f, sorted_links)
     return fused_descend_plain(lo, hi, n, levels, f)
 
 
-def _jump(lo: torch.Tensor, hi: torch.Tensor, n: int, levels: int):
+def _jump(lo: torch.Tensor, hi: torch.Tensor, n: int, levels: int,
+          sorted_links: bool = False):
     """Binary-lifted pointer jump over the live links' own min-up table.
     Returns (lo, moved int32 0-d)."""
-    return _lift_descend(lo, hi, n, levels, min_up_table(lo, hi, n))
+    return _lift_descend(lo, hi, n, levels, min_up_table(lo, hi, n),
+                         sorted_links)
 
 
 def _chunk_round(lo, hi, n: int, levels: int):
@@ -112,7 +116,7 @@ def _chunk_round(lo, hi, n: int, levels: int):
     lo, hi = sort_links(lo, hi)
     live = (lo != n).sum(dtype=torch.int32)
     lo, hi, rewrites = _rewrite_sorted(lo, hi, n)
-    lo, jumped = _jump(lo, hi, n, levels)
+    lo, jumped = _jump(lo, hi, n, levels, sorted_links=True)
     return lo, hi, rewrites + jumped, live
 
 

@@ -9,17 +9,26 @@ descent is the hand-written Hopper kernel in ``csrc/fused_jump.cu``
 CPU tensor it is the plain torch version.  There is no fallback between
 the two: a CUDA input launches the kernel or raises.
 
+On the card the descent runs in L2-sized table groups, as the reference
+runs it in VMEM-sized ones (``pallas_jump.py:119-128``):
+:func:`plan_groups` splits the L tables into groups that fit a share of
+the card's L2 (read from the device, :func:`l2_cache_bytes`), and
+:func:`descend_groups` launches K1 once per group, each launch reading
+the previous one's output.
+
 The table squarings T_{k+1} = T_k[T_k] stay torch indexing and the
 ``moved`` count stays a torch reduction, as they stay jnp outside the
 Pallas call in the JAX package.
 
 ``launches`` counts kernel launches (incremented only where the kernel is
-launched), so a run can show that its main path went through K1.
+launched, once per table group), so a run can show that its main path went
+through K1.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -32,6 +41,14 @@ _lib: ctypes.CDLL | None = None
 
 #: kernel launches since the last reset (set it to 0 to reset)
 launches = 0
+
+#: The share of the L2 that one group's tables may fill.  Random gathers
+#: slow down once their tables pass about half of the H100's 50 MB: one
+#: launch per table at E = 2^26 took 0.51 ms a level with 8.4 or 16.8 MB
+#: tables and 0.74 ms with a 33.5 MB one, and one pass over four 16.8 MB
+#: tables 1.9 times as long as four launches (one H100, chip_smoke.py's
+#: K1 phase).  Half gives one table a launch at n >= 2^22, six at 2^20.
+L2_TABLE_SHARE = 1 / 2
 
 
 def load_library() -> ctypes.CDLL:
@@ -46,8 +63,47 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_void_p]
+            lib.sheep_l2_cache_bytes.restype = ctypes.c_int64
+            lib.sheep_l2_cache_bytes.argtypes = []
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def l2_cache_bytes(device: torch.device) -> int:
+    """The L2 size in bytes of a CUDA device (cudaDevAttrL2CacheSize)."""
+    if device.type != "cuda":
+        raise ValueError(f"l2_cache_bytes needs a CUDA device, got {device}")
+    lib = load_library()
+    with torch.cuda.device(device):
+        got = lib.sheep_l2_cache_bytes()
+    if got <= 0:
+        raise RuntimeError(f"cannot read the L2 size of {device}: "
+                           f"CUDA error {-got}")
+    return got
+
+
+def plan_groups(levels: int, width: int, l2_bytes: int,
+                sorted_links: bool = False) -> list:
+    """Table groups for one descent, deepest first: ``[(start, stop),
+    ...]`` covering ``range(levels)`` in order, each of ``g = max(1,
+    budget // (4 * width))`` tables (the last may hold fewer), where the
+    budget is :data:`L2_TABLE_SHARE` of ``l2_bytes``.
+
+    ``sorted_links``: the links come from ``sort_links`` (ordered by lo),
+    so neighbouring links gather neighbouring entries and a pass sweeps
+    each table in order, needing no more than a window of it in L2: then
+    one group of all the tables, which saves the re-streaming of lo/hi
+    per group (on the real build's first chunk round, n = 2^23,
+    E = 2^26, L = 4, one H100: 0.98 ms in one pass against 1.43 ms in
+    four launches, chip_smoke.py)."""
+    if levels < 1 or width < 1 or l2_bytes < 1:
+        raise ValueError(f"plan_groups: levels, width and l2_bytes must be "
+                         f">= 1, got {levels}, {width}, {l2_bytes}")
+    if sorted_links:
+        return [(0, levels)]
+    g = max(1, int(l2_bytes * L2_TABLE_SHARE) // (4 * width))
+    return [(s, min(s + g, levels)) for s in range(0, levels, g)]
 
 
 def _check_args(tables: torch.Tensor, lo: torch.Tensor,
@@ -69,15 +125,21 @@ def _check_args(tables: torch.Tensor, lo: torch.Tensor,
 
 
 def jump_group_cuda(tables: torch.Tensor, lo: torch.Tensor,
-                    hi: torch.Tensor) -> torch.Tensor:
-    """Launch K1: descend lo through ``tables`` (int32 [L, n+1], deepest
-    first) where the step stays below hi.  CUDA tensors only."""
+                    hi: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K1 once: descend lo through ``tables`` (int32 [L, n+1],
+    deepest first) where the step stays below hi, into ``out`` (a new
+    tensor if None).  CUDA tensors only."""
     global launches
     _check_args(tables, lo, hi)
     if lo.device.type != "cuda":
         raise ValueError(f"jump_group_cuda needs CUDA tensors, got "
                          f"{lo.device}")
-    out = torch.empty_like(lo)
+    if out is None:
+        out = torch.empty_like(lo)
+    elif (out.dtype != torch.int32 or out.shape != lo.shape
+          or not out.is_contiguous() or out.device != lo.device):
+        raise ValueError("out must be a contiguous int32 tensor like lo")
     e = lo.numel()
     if e == 0:
         return out
@@ -96,9 +158,10 @@ def jump_group_cuda(tables: torch.Tensor, lo: torch.Tensor,
 def jump_group_plain(tables: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor) -> torch.Tensor:
     """K1's function in plain torch: the same descent, one gather and one
-    select per table."""
+    select per table, the gather index clamped into the table as K1's
+    and jnp's gathers clamp it."""
     for table in tables:
-        nlo = torch.index_select(table, 0, lo)
+        nlo = torch.index_select(table, 0, lo.clamp(0, table.numel() - 1))
         lo = torch.where(nlo < hi, nlo, lo)
     return lo
 
@@ -110,6 +173,26 @@ def jump_group(tables: torch.Tensor, lo: torch.Tensor,
         _check_args(tables, lo, hi)
         return jump_group_plain(tables, lo, hi)
     return jump_group_cuda(tables, lo, hi)
+
+
+def descend_groups(tables: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   groups: list) -> torch.Tensor:
+    """The descent through ``tables`` one group at a time (``groups`` as
+    :func:`plan_groups` gives them), each group reading the previous
+    group's output.  On CUDA tensors one K1 launch per group, ping-ponging
+    between two output buffers; on CPU tensors the plain version per
+    group."""
+    if lo.device.type == "cpu":
+        _check_args(tables, lo, hi)
+        for start, stop in groups:
+            lo = jump_group_plain(tables[start:stop], lo, hi)
+        return lo
+    bufs = [torch.empty_like(lo)]
+    if len(groups) > 1:
+        bufs.append(torch.empty_like(lo))
+    for i, (start, stop) in enumerate(groups):
+        lo = jump_group_cuda(tables[start:stop], lo, hi, out=bufs[i % 2])
+    return lo
 
 
 def lift_tables(f: torch.Tensor, levels: int) -> torch.Tensor:
@@ -126,13 +209,20 @@ def lift_tables(f: torch.Tensor, levels: int) -> torch.Tensor:
 
 
 def fused_descend(lo: torch.Tensor, hi: torch.Tensor, n: int, levels: int,
-                  f: torch.Tensor):
+                  f: torch.Tensor, sorted_links: bool = False):
     """Descent through a given one-step table f [n+1]: build the lifted
-    tables, then one K1 pass.  Returns (lo, moved int32 0-d) like
-    ops.forest._jump."""
+    tables, then descend through them, on the card in the groups that
+    :func:`plan_groups` fits to its L2 (one K1 launch each;
+    ``sorted_links`` as there), on the CPU in one plain pass.  Returns
+    (lo, moved int32 0-d) like ops.forest._jump, moved counted against
+    the input lo."""
     lo = lo.to(torch.int32).contiguous()
     hi = hi.to(torch.int32).contiguous()
-    out = jump_group(lift_tables(f.to(torch.int32), levels), lo, hi)
+    tables = lift_tables(f.to(torch.int32), levels)
+    depth, width = tables.shape
+    groups = [(0, depth)] if lo.device.type == "cpu" else \
+        plan_groups(depth, width, l2_cache_bytes(lo.device), sorted_links)
+    out = descend_groups(tables, lo, hi, groups)
     return out, (out != lo).sum(dtype=torch.int32)
 
 

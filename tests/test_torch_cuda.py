@@ -1,5 +1,6 @@
 """The port on the card: kernels K1, P1 and P2 against their plain
-versions, and the CUDA builds (the hybrid on both handoff arms) against
+versions (K1 also in forced table groupings, P1 and K1 on views that are
+not 16-byte aligned and on ragged lengths), and the CUDA builds (the hybrid on both handoff arms) against
 the port's host oracle.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
@@ -51,10 +52,11 @@ def test_k1_launch_equals_plain(cuda, trial):
     lo = torch.from_numpy(lo_np).to(cuda)
     hi = torch.from_numpy(hi_np).to(cuda)
     f = min_up_table(lo, hi, n)
+    groups = pj.plan_groups(levels, n + 1, pj.l2_cache_bytes(lo.device))
     before = pj.launches
     got_lo, got_moved = pj.fused_descend(lo, hi, n, levels, f)
     torch.cuda.synchronize()
-    assert pj.launches == before + 1
+    assert pj.launches == before + len(groups)  # one launch per group
     want_lo, want_moved = pj.fused_descend_plain(lo, hi, n, levels, f)
     assert torch.equal(got_lo, want_lo)
     assert int(got_moved) == int(want_moved)
@@ -73,6 +75,33 @@ def test_k1_ragged_tail_and_empty(cuda):
                        pj.jump_group_plain(tables, lo, hi))
     empty = torch.empty(0, dtype=torch.int32, device=cuda)
     assert pj.jump_group_cuda(tables, empty, empty).numel() == 0
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset1", "offset2",
+                                    "offset3", "tail1", "tail2", "tail3"])
+@pytest.mark.parametrize("g", [1, 2, 6])
+def test_k1_forced_groups_equal_plain(cuda, g, layout):
+    """A small l2_bytes forces g tables a launch; views at storage
+    offsets 1-3 take the kernel's scalar path, E % 4 != 0 its tail."""
+    n, levels, e = 1 << 14, 6, 50_000
+    g_ = torch.Generator(device=cuda).manual_seed(11)
+    base_lo = torch.randint(0, n + 1, (e + 8,), generator=g_, device=cuda)
+    base_hi = torch.clamp(base_lo + torch.randint(1, n, (e + 8,),
+                                                  generator=g_,
+                                                  device=cuda), max=n)
+    base_lo, base_hi = base_lo.to(torch.int32), base_hi.to(torch.int32)
+    tables = pj.lift_tables(min_up_table(base_lo, base_hi, n), levels)
+    off = int(layout[-1]) if layout.startswith("offset") else 0
+    size = e + (int(layout[-1]) if layout.startswith("tail") else 0)
+    lo, hi = base_lo[off:off + size], base_hi[off:off + size]
+    l2 = int(g * 4 * (n + 1) / pj.L2_TABLE_SHARE) + 64
+    groups = pj.plan_groups(levels, n + 1, l2)
+    assert len(groups) == -(-levels // g)
+    before = pj.launches
+    got = pj.descend_groups(tables, lo, hi, groups)
+    torch.cuda.synchronize()
+    assert pj.launches == before + len(groups)
+    assert torch.equal(got, pj.jump_group_plain(tables, lo, hi))
 
 
 @pytest.mark.parametrize("build", [build_graph_hybrid, build_graph_device])
@@ -100,6 +129,22 @@ def test_p1_add_one_equals_plain(cuda, n):
     if n % 256 == 0:
         x2 = x.reshape(n // 256, 256)
         assert torch.equal(probe.add_one(x2), x2 + 1)
+
+
+@pytest.mark.parametrize("size", [1 << 18, (1 << 18) + 1, (1 << 18) + 3])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_p1_offset_views_and_ragged_n(cuda, off, size):
+    """Views at storage offsets 1-3 take P1's scalar path, n % 4 != 0
+    its tail; INT32_MAX wraps as torch's x + 1 does on both."""
+    buf = torch.arange(size + 8, dtype=torch.int32, device=cuda)
+    buf[:5] = torch.iinfo(torch.int32).max
+    buf[-5:] = torch.iinfo(torch.int32).max
+    x = buf[off:off + size]
+    before = probe.launches["add_one"]
+    got = probe.add_one(x)
+    torch.cuda.synchronize()
+    assert probe.launches["add_one"] == before + 1
+    assert torch.equal(got, x + 1)
 
 
 @pytest.mark.parametrize("lo_over", [0, 37])
