@@ -23,26 +23,45 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
 4. P1 and P2 against their plain versions at n = 2^18 (the probe's
    default), 2^20 and 2^24, and P1 also at 2^24 + 3 and on views at
    storage offsets 1-3, exactly equal, with kernel_ms, plain_ms,
-   bound_ms and library_ms timed the same way; then the probe tool's
-   ``main`` once at its default size, which must report both kernels
-   right and launch both;
+   bound_ms and library_ms timed the same way.  P2 (also at 2^22) with
+   one torch.gather beside it (gather_only_ms, the floor of any
+   gather-based version), and at 2^24 + 3, on views at offsets 1-3 and
+   with lo below 0 and at or past the width on the int4 and scalar
+   paths.  Then the probe tool's ``main`` once at its default size,
+   which must report both kernels right and launch both;
 5. hep-th golden: build_graph_hybrid and build_graph_device on the card
    print the golden TREEFAQS line and equal the host oracle;
 6. real size: build_graph_hybrid on rmat_edges(23, 2^26, seed=0)
    (com-LiveJournal scale) on the default tail, the streamed windowed
-   handoff, which must report stream_mode "windowed" and 4 windows, then
-   once on the serial arm (SHEEP_STREAM_HANDOFF=0
-   SHEEP_OVERLAP_HANDOFF=0); every run equals the host oracle bit for bit.
-   The first run records the shape (width, E, L, sorted or not, groups)
-   and device time of every K1 call and keeps the first chunk round's
-   input, on which K1's three orders are then timed against the plain
-   version as in phase 3;
-7. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
-8. a ``kernels`` JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   handoff, which must report stream_mode "windowed" and 4 windows, once
+   on the serial arm (SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0),
+   again on the default tail, then on the speculative arm
+   (SHEEP_STREAM_HANDOFF=0, the overlap at its CUDA default), which must
+   report its spec_mode and spec_starts; every run equals the host oracle
+   bit for bit.  The first run records the shape (width, E, L, sorted or
+   not, groups) and device time of every K1 call and keeps the first
+   chunk round's input, on which K1's three orders are then timed against
+   the plain version as in phase 3;
+7. the speculative arm forced, through its seams, to hand off the
+   snapshot its side stream fetched: spec_complete (the stream stops the
+   loop) and spec_wait, each 6-byte packed and in int32 pairs, on
+   rmat_edges(18, 2^21, seed=2), each equal to the oracle;
+8. the spec arm's fetch thread alone: 2^24 random links at n = 2^23
+   fetched in slices of 2^18 and 2^21 links, equal to the snapshot, with
+   its breakdown (pinned allocation, copy enqueue, event wait, the
+   copies' device time) and rate;
+9. the out-of-core builds: build_graph_streaming_hosted and
+   build_graph_streaming on hep-th in blocks of 4096 (the golden
+   TREEFAQS line), build_graph_streaming on rmat_edges(20, 2^23, seed=1)
+   in 4 blocks, and build_graph_streaming_hosted on the real-size graph
+   in blocks of 2^24 records, each equal to the oracle;
+10. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
+11. a ``kernels`` JSON line, the card's name and power limit, then the
+    result line ``{"ok": true, "device": {...}}`` last.
 
 Every launch count is set to 0 just before each driven path and read just
-after: each build must have launched K1, and the probe tool P1 and P2.
+after: each build (the streaming builds too) must have launched K1, and
+the probe tool P1 and P2.
 Imports nothing of JAX or sheep_tpu.
 """
 
@@ -56,6 +75,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -334,11 +354,12 @@ def counted_build(fn, what: str):
 
 
 def probe_case(name: str, n: int, kernel, plain, args, device,
-               bytes_moved: int, library=None, layout: str = "aligned"):
+               bytes_moved: int, library=None, layout: str = "aligned",
+               extra: dict | None = None):
     """One probe kernel against its plain version on one input: exactly
-    equal, then kernel_ms, plain_ms and library_ms timed in turns
-    (:func:`time_turns`) and bound_ms (bytes over the card's memory
-    rate)."""
+    equal, then kernel_ms, plain_ms, library_ms and any ``extra`` (name ->
+    callable of the same args) timed in turns (:func:`time_turns`), and
+    bound_ms (bytes over the card's memory rate)."""
     got = kernel(*args)
     want = plain(*args)
     equal = torch.equal(got, want)
@@ -347,6 +368,8 @@ def probe_case(name: str, n: int, kernel, plain, args, device,
            "plain_ms": lambda: plain(*args)}
     if library is not None:
         fns["library_ms"] = lambda: library(*args)
+    for key, fn in (extra or {}).items():
+        fns[key] = lambda fn=fn: fn(*args)
     rec = {"kernel": name, "n": n, "layout": layout, "equal": equal,
            "max_abs_err": err, "library_ms": None,
            **time_turns(fns, device),
@@ -356,6 +379,49 @@ def probe_case(name: str, n: int, kernel, plain, args, device,
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{rec}")
     return rec
+
+
+def p2_cases(device: torch.device, log_ns) -> list:
+    """P2 against its plain version: the probe's inputs at each size (one
+    torch.gather timed beside it), then at the largest size a ragged E
+    (2^k + 3), views at storage offsets 1-3 (the scalar path), and lo
+    drawn below 0 and at or past the table's width on the int4 path and
+    the scalar path (the clamp), every case exactly equal."""
+    from sheep_tpu_torch.ops import probe
+    from sheep_tpu_torch.scripts import kernel_probe
+
+    # a floor for any gather-based version: the gather alone
+    extra = {"gather_only_ms": lambda f, lo, hi: torch.gather(f, 0, lo)}
+    recs = []
+    for log_n in log_ns:
+        n = 1 << log_n
+        args = kernel_probe.probe_inputs(n, device)
+        recs.append(probe_case("jump_step", n, probe.jump_step,
+                               probe.jump_step_plain, args, device, 16 * n,
+                               extra=extra))
+        del args
+    n = 1 << max(log_ns)
+    g = torch.Generator(device=device).manual_seed(4)
+    f = kernel_probe.probe_inputs(n, device)[0]
+    lo = torch.randint(0, n, (n + 8,), generator=g, device=device)
+    hi = torch.clamp(lo + torch.randint(1, 1024, (n + 8,), generator=g,
+                                        device=device), max=n)
+    # lo below 0 and at or past the width, hi so that some still step
+    wild = torch.randint(-37, n + 37, (n + 8,), generator=g, device=device)
+    wild_hi = wild + torch.randint(-3, 1024, (n + 8,), generator=g,
+                                   device=device)
+    lo, hi, wild, wild_hi = (t.to(torch.int32) for t in (lo, hi, wild,
+                                                         wild_hi))
+    layouts = [("tail3", lo, hi, 0, n + 3)] \
+        + [(f"offset{k}", lo, hi, k, n) for k in (1, 2, 3)] \
+        + [("clamp_aligned", wild, wild_hi, 0, n),
+           ("clamp_offset1", wild, wild_hi, 1, n + 1)]
+    for layout, a, b, off, size in layouts:
+        args = (f, a[off:off + size], b[off:off + size])
+        recs.append(probe_case("jump_step", size, probe.jump_step,
+                               probe.jump_step_plain, args, device,
+                               16 * size, layout=layout))
+    return recs
 
 
 def probe_phase(device: torch.device, log_ns=(18, 20, 24)):
@@ -374,10 +440,7 @@ def probe_phase(device: torch.device, log_ns=(18, 20, 24)):
         recs.append(probe_case("add_one", n, probe.add_one,
                                probe.add_one_plain, (x,), device, 8 * n,
                                library=lambda a: a + 1))
-        args = kernel_probe.probe_inputs(n, device)
-        recs.append(probe_case("jump_step", n, probe.jump_step,
-                               probe.jump_step_plain, args, device, 16 * n))
-        del x, args
+        del x
     # P1's scalar path at the largest size: n % 4 != 0, and views at
     # storage offsets 1-3 (not 16-byte aligned); INT32_MAX wraps
     n = 1 << max(log_ns)
@@ -390,6 +453,8 @@ def probe_phase(device: torch.device, log_ns=(18, 20, 24)):
                                device, 8 * size, library=lambda a: a + 1,
                                layout=layout))
     del buf
+    # P2 also at 2^22, where f (16 MB) fits the L2 with room to spare
+    recs.extend(p2_cases(device, tuple(sorted(set(log_ns) | {22}))))
     reset_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -461,10 +526,19 @@ def oracle(tail, head):
 SERIAL_ARM = {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "0"}
 
 
+#: the speculative arm: stream off, the overlap at its CUDA default (on)
+SPEC_ARM = {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": None}
+
+
 @contextlib.contextmanager
 def env_set(values: dict):
+    """Set the given variables (None unsets one) inside the block."""
     old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -549,29 +623,43 @@ class K1Recorder:
         return sum(times)
 
 
-def real_size_phase(device: torch.device, log_n: int = 23,
-                    log_e: int = 26, runs: int = 2, windows: int = 4):
-    """The real-size hybrid on both arms; returns the runs' records and
-    the first run's K1 recorder."""
-    from sheep_tpu_torch.ops.build import build_graph_hybrid
+def real_inputs(log_n: int, log_e: int, seed: int):
+    """rmat_edges(log_n, 2^log_e, seed) and its host oracle."""
     from sheep_tpu_torch.utils import rmat_edges
 
     t0 = time.perf_counter()
-    tail, head = rmat_edges(log_n, 1 << log_e, seed=0)
-    log(f"real: rmat_edges({log_n}, 2^{log_e}, seed=0) in "
+    tail, head = rmat_edges(log_n, 1 << log_e, seed=seed)
+    log(f"real: rmat_edges({log_n}, 2^{log_e}, seed={seed}) in "
         f"{time.perf_counter() - t0:.2f}s")
     want_seq, want, oracle_s = oracle(tail, head)
     log(f"real: host oracle in {oracle_s:.2f}s, m={len(want_seq)}")
+    return tail, head, want_seq, want
+
+
+def real_size_phase(device: torch.device, log_n: int = 23,
+                    log_e: int = 26, runs: int = 2, windows: int = 4,
+                    data=None):
+    """The real-size hybrid on every arm: the default streamed tail first
+    and third, the serial arm second, the speculative arm fourth; returns
+    the runs' records and the first run's K1 recorder.  ``data``: the
+    (tail, head, want_seq, want) of :func:`real_inputs`, made here if
+    None."""
+    from sheep_tpu_torch.ops.build import build_graph_hybrid
+
+    tail, head, want_seq, want = data if data is not None \
+        else real_inputs(log_n, log_e, 0)
     recs = []
     recorder = K1Recorder()
-    # the default tail (streamed) runs first and last, the serial arm
-    # between, so the two arms meet on one card in turns
-    arms = ["stream"] * (runs - 1) + ["serial", "stream"]
+    # the default tail (streamed) runs first and third, the serial arm
+    # between, so the two arms meet on one card in turns; then the
+    # speculative arm
+    arms = ["stream"] * (runs - 1) + ["serial", "stream", "spec"]
+    envs = {"stream": {}, "serial": SERIAL_ARM, "spec": SPEC_ARM}
     for run, arm in enumerate(arms):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         perf: dict = {}
-        with env_set(SERIAL_ARM if arm == "serial" else {}), \
+        with env_set(envs[arm]), \
                 (recorder if run == 0 else contextlib.nullcontext()):
             (seq, forest), wall, launches = counted_build(
                 lambda: build_graph_hybrid(tail, head, device=device,
@@ -596,6 +684,11 @@ def real_size_phase(device: torch.device, log_n: int = 23,
                 f"{windows} windows: stream_mode="
                 f"{perf.get('stream_mode')} "
                 f"fetch_windows={perf.get('fetch_windows')}")
+        if arm == "spec" and ("spec_mode" not in perf
+                              or "spec_starts" not in perf
+                              or "stream_mode" in perf):
+            raise AssertionError(f"real-size hybrid: the speculative arm "
+                                 f"did not run: {perf}")
         recs.append(rec)
     if recorder.kept is None:
         raise AssertionError(f"real-size hybrid: no chunk round reached K1 "
@@ -603,12 +696,239 @@ def real_size_phase(device: torch.device, log_n: int = 23,
     return recs, recorder
 
 
-def device_phase(device: torch.device, log_n: int = 20, log_e: int = 23):
-    from sheep_tpu_torch.ops.build import build_graph_device
-    from sheep_tpu_torch.utils import rmat_edges
+@contextlib.contextmanager
+def spec_forced(outcome: str):
+    """Force one outcome of the speculative handoff without a knob in the
+    package, through its seams.  "spec_complete": at each chunk after its
+    start the stream is joined (left to land) before the policy looks, so
+    the loop stops on a finished stream.  "spec_wait": each stream holds
+    its last slice until a caller joins it, and at each chunk and at the
+    loop's end the policy looks only once the stream has fetched the
+    rest, so the loop ends with the stream one slice short and
+    ``complete`` waits it out.  Either way the stream's slices copy on the
+    side stream while the loop's next chunk runs."""
+    from sheep_tpu_torch.ops import build
 
-    tail, head = rmat_edges(log_n, 1 << log_e, seed=1)
-    want_seq, want, _ = oracle(tail, head)
+    saved = (build._StreamFetcher, build._SpecHandoff.on_chunk,
+             build._SpecHandoff.complete)
+    on_chunk, complete = saved[1], saved[2]
+
+    class LastSliceHeld(saved[0]):
+        def __init__(self, *args, **kwargs):
+            self._gate = threading.Event()
+            self.at_gate = threading.Event()
+            super().__init__(*args, **kwargs)
+
+        def _wait_turn(self, i):
+            if i == self.total_slices - 1:
+                self.at_gate.set()
+                self._gate.wait(timeout=300)
+
+        def join(self, timeout=None, mark_failed=True):
+            self._gate.set()
+            return super().join(timeout, mark_failed)
+
+    def settle(spec):
+        if spec.active is None:
+            return
+        if outcome == "spec_complete":
+            spec.active.join(timeout=300)
+        else:
+            spec.active.at_gate.wait(timeout=300)
+
+    def settled_chunk(self, lo, hi, live):
+        settle(self)
+        return on_chunk(self, lo, hi, live)
+
+    def settled_complete(self, lo, hi, live):
+        settle(self)
+        return complete(self, lo, hi, live)
+
+    if outcome not in ("spec_complete", "spec_wait"):
+        raise ValueError(f"spec_forced: no outcome {outcome!r}")
+    if outcome == "spec_wait":
+        build._StreamFetcher = LastSliceHeld
+    build._SpecHandoff.on_chunk = settled_chunk
+    build._SpecHandoff.complete = settled_complete
+    try:
+        yield
+    finally:
+        (build._StreamFetcher, build._SpecHandoff.on_chunk,
+         build._SpecHandoff.complete) = saved
+
+
+def spec_outcomes_phase(device: torch.device, log_n: int = 18,
+                        log_e: int = 21, seed: int = 2):
+    """The speculative arm handing off a snapshot that its stream fetched
+    on the side stream: spec_complete (the stream stops the loop) and
+    spec_wait, each 6-byte packed and in int32 pairs (where the stream
+    reads the loop's own lo and hi), on rmat_edges(18, 2^21, seed=2);
+    each forest equal to the oracle, K1 launched.  Small knobs make a
+    stream start at this size (SHEEP_OVERLAP_MIN_MB=0.01, 16K-link
+    slices, SHEEP_OVERLAP_SPEC_FACTOR=64), and the handoff factor is the
+    card's default, 3, so a chunk follows the stream's start."""
+    from sheep_tpu_torch.ops.build import build_graph_hybrid
+
+    tail, head, want_seq, want = real_inputs(log_n, log_e, seed)
+    knobs = {**SPEC_ARM, "SHEEP_OVERLAP_MIN_MB": "0.01",
+             "SHEEP_OVERLAP_SLICE": str(1 << 14),
+             "SHEEP_OVERLAP_SPEC_FACTOR": "64",
+             "SHEEP_HANDOFF_FACTOR": "3"}
+    recs = []
+    for outcome in ("spec_complete", "spec_wait"):
+        for packed in (True, False):
+            perf: dict = {}
+            env = {**knobs, "SHEEP_PACK_HANDOFF": None if packed else "0"}
+            with env_set(env), spec_forced(outcome):
+                (seq, forest), wall, launches = counted_build(
+                    lambda: build_graph_hybrid(tail, head, device=device,
+                                               perf=perf),
+                    f"spec arm ({outcome})")
+            rec = {"outcome": outcome, "records": len(tail), "wall_s": wall,
+                   "k1_launches": launches, **perf}
+            log("spec outcome " + json.dumps(rec))
+            if not forest_equal(seq, forest, want_seq, want):
+                raise AssertionError(f"spec arm ({outcome}, packed="
+                                     f"{packed}) differs from the oracle")
+            stopped = outcome == "spec_complete"
+            if (perf.get("spec_mode") != outcome
+                    or perf.get("packed_handoff") is not packed
+                    or perf.get("spec_stopped_loop") is not stopped):
+                raise AssertionError(f"spec arm: wanted {outcome} with "
+                                     f"packed={packed}, got {perf}")
+            recs.append(rec)
+    return recs
+
+
+def fetch_phase(device: torch.device, n: int = 1 << 23, links: int = 1 << 24,
+                slices=(1 << 18, 1 << 21)):
+    """The speculative arm's fetch thread (``ops.build._StreamFetcher``)
+    alone on the card, nothing else running: a snapshot of 2^24 random
+    links at n = 2^23 (6-byte packed, 100 MB) fetched in slices of 2^18
+    links (the default) and 2^21, its host copy equal to the snapshot.
+    Logs the thread's breakdown (``ops.build.fetch_phases``: pinned
+    allocation, copy enqueue and event wait on the host, the copies'
+    device time) and its rate."""
+    from sheep_tpu_torch.ops.build import _StreamFetcher
+
+    g = torch.Generator(device=device).manual_seed(5)
+    lo = torch.randint(0, n, (links,), generator=g, device=device)
+    hi = torch.clamp(lo + torch.randint(1, 1024, (links,), generator=g,
+                                        device=device), max=n)
+    lo, hi = lo.to(torch.int32), hi.to(torch.int32)
+    want_lo, want_hi = lo.cpu().numpy(), hi.cpu().numpy()
+    recs = []
+    for slice_links in slices:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = _StreamFetcher(lo, hi, n, links, slice_links)
+        if f.join(timeout=600) or f.failed:
+            raise AssertionError(f"fetch: the stream did not finish "
+                                 f"({f.error!r})")
+        wall = time.perf_counter() - t0
+        got_lo, got_hi = f.collect()
+        if not (np.array_equal(got_lo[:links], want_lo)
+                and np.array_equal(got_hi[:links], want_hi)):
+            raise AssertionError("fetch: the host copy differs from the "
+                                 "snapshot")
+        rec = {"slice_links": slice_links, "packed": f.packed,
+               "wall_s": wall, **f.phases,
+               "gb_per_s": f.phases["bytes"] / wall / 1e9}
+        log("fetch " + json.dumps(rec))
+        recs.append(rec)
+        del f, got_lo, got_hi
+    return recs
+
+
+def _blocks(tail, head, block: int):
+    for a in range(0, len(tail), block):
+        yield tail[a:a + block], head[a:a + block]
+
+
+def streaming_run(name: str, hosted: bool, tail, head, want_seq, want,
+                  block: int, device: torch.device, golden: bool = False):
+    """One streaming build over the records in blocks of ``block``: the
+    forest over the sequence's m positions, equal to the oracle's, K1
+    launched; with ``golden`` its TREEFAQS line must be the golden one."""
+    from sheep_tpu_torch.core import compute_facts
+    from sheep_tpu_torch.core.sequence import sequence_positions
+    from sheep_tpu_torch.ops.stream import (build_graph_streaming,
+                                            build_graph_streaming_hosted)
+
+    m = len(want_seq)
+    pos = sequence_positions(want_seq, int(max(tail.max(), head.max())))
+    perf: dict = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    if hosted:
+        def build():
+            return build_graph_streaming_hosted(_blocks(tail, head, block),
+                                                m, pos, block, device=device,
+                                                perf=perf)
+    else:
+        def build():
+            return build_graph_streaming(_blocks(tail, head, block), m, pos,
+                                         block, device=device)
+    (forest, rounds), wall, launches = counted_build(build, name)
+    if not (np.array_equal(forest.parent, want.parent)
+            and np.array_equal(forest.pst_weight, want.pst_weight)):
+        raise AssertionError(f"{name} differs from the oracle")
+    rec = {"case": name, "hosted": hosted, "records": len(tail),
+           "block": block, "blocks": -(-len(tail) // block),
+           "wall_s": wall, "records_per_s": len(tail) / wall,
+           "k1_launches": launches, **perf,
+           # every block's rounds and the final fold's (perf's "rounds"
+           # and loop_s are the final fold's alone)
+           "total_rounds": rounds}
+    if device.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if golden:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            compute_facts(forest).print()
+        text = buf.getvalue()
+        log(f"{name}: {text.strip()}".replace("\n", " /"))
+        if text != GOLDEN_TREEFAQS:
+            raise AssertionError(f"{name}: TREEFAQS differs from the golden "
+                                 f"line:\n{text}")
+    log("streaming " + json.dumps(rec))
+    return rec
+
+
+def streaming_phase(device: torch.device, real, small, hep_block: int = 4096,
+                    real_block: int = 1 << 24, small_blocks: int = 4):
+    """The out-of-core builds: the hosted build on the real-size graph in
+    blocks of 2^24 records (sheep_tpu/cli/degree_sequence.py's block),
+    the fixpoint build on ``small`` in four blocks, and both on hep-th
+    with the golden TREEFAQS line; every forest equal to the oracle."""
+    from sheep_tpu_torch.core import build_forest, degree_sequence
+    from sheep_tpu_torch.io import load_edges
+
+    el = load_edges(os.path.join(ROOT, "data", "hep-th.dat"))
+    hep_seq = degree_sequence(el.tail, el.head)
+    hep = (el.tail, el.head, hep_seq, build_forest(el.tail, el.head,
+                                                   hep_seq))
+    recs = [streaming_run("hep-th streaming hosted", True, *hep, hep_block,
+                          device, golden=True),
+            streaming_run("hep-th streaming", False, *hep, hep_block,
+                          device, golden=True)]
+    block = -(-len(small[0]) // small_blocks)
+    recs.append(streaming_run("streaming (fixpoint)", False, *small, block,
+                              device))
+    recs.append(streaming_run("real-size streaming hosted", True, *real,
+                              real_block, device))
+    return recs
+
+
+def device_phase(device: torch.device, data=None, log_n: int = 20,
+                 log_e: int = 23):
+    """build_graph_device on ``data`` (:func:`real_inputs` of
+    rmat_edges(20, 2^23, seed=1) if None), equal to the oracle."""
+    from sheep_tpu_torch.ops.build import build_graph_device
+
+    tail, head, want_seq, want = data if data is not None \
+        else real_inputs(log_n, log_e, 1)
     (seq, forest), wall, launches = counted_build(
         lambda: build_graph_device(tail, head, device=device),
         "full device build")
@@ -624,6 +944,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+
     device = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -633,7 +954,8 @@ def main() -> int:
     k1 = k1_phase(device)
     probes, _, probe_counts = probe_phase(device)
     golden_phase(device)
-    real, recorder = real_size_phase(device)
+    real_data = real_inputs(23, 26, 0)
+    real, recorder = real_size_phase(device, data=real_data)
     kept = {k: v.to(device) if isinstance(v, torch.Tensor) else v
             for k, v in recorder.kept.items()}
     k1.append(k1_case("main_path", kept["lo"], kept["hi"], kept["n"],
@@ -641,8 +963,14 @@ def main() -> int:
                       sorted_links=kept["sorted_links"]))
     del kept
     recorder.kept = None
-    device_phase(device)
-    main_run = real[-1]
+    spec_outcomes_phase(device)
+    fetch_phase(device)
+    small_data = real_inputs(20, 23, 1)
+    streaming_phase(device, real_data, small_data)
+    del real_data
+    device_phase(device, small_data)
+    # the default tail's last run (the runs in between are other arms)
+    main_run = next(r for r in reversed(real) if r["arm"] == "stream")
     timed = next(r for r in k1 if r["case"] == "real_L4")
     kernels = [{
         "name": "fused_jump", "route": "cuda",
@@ -680,6 +1008,8 @@ def main() -> int:
             "bound_ms": big["bound_ms"], "bound_by": "bytes",
             "library_ms": big["library_ms"], "library": library,
             "case": f"n={big['n']}",
+            **({"gather_only_ms": big["gather_only_ms"]}
+               if name == "jump_step" else {}),
         })
     log(json.dumps({"kernels": kernels}))
     log(card)  # name and power limit, as nvidia-smi gives them

@@ -1,5 +1,6 @@
 """Edge-list readers (trust mode)."""
 
-from .edges import EdgeList, load_edges, read_dat, read_net
+from .edges import EdgeList, iter_dat_blocks, load_edges, read_dat, read_net
 
-__all__ = ["EdgeList", "load_edges", "read_dat", "read_net"]
+__all__ = ["EdgeList", "iter_dat_blocks", "load_edges", "read_dat",
+           "read_net"]

@@ -8,12 +8,15 @@
 Trust mode reads no integrity sidecar: a torn trailing ``.dat`` record is
 dropped, and a malformed ``.net`` token raises ValueError.  Partial loads
 (part k of num_parts, 1-indexed) are the contiguous record ranges
-[floor((k-1)*E/n), floor(k*E/n)).
+[floor((k-1)*E/n), floor(k*E/n)).  :func:`iter_dat_blocks` streams a
+``.dat`` file block by block, the source of the out-of-core builds
+(``ops.stream``).
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -75,6 +78,49 @@ def read_dat(path: str, part: int = 0, num_parts: int = 0) -> EdgeList:
         file_edges=num_records,
         start=start,
     )
+
+
+def iter_dat_blocks(path: str, block_edges: int, part: int = 0,
+                    num_parts: int = 0, start_edge: int = 0,
+                    end_edge: int | None = None):
+    """Stream a ``.dat`` file as (tail, head) uint32 blocks of at most
+    ``block_edges`` records; nothing but the current block is held.
+    Honors partial-load ranges like :func:`read_dat`.
+
+    Blocks are plain buffered reads (seek + read), not a whole-file
+    memmap, so the resident set stays O(block) whatever the file's size.
+    ``start_edge`` skips that many records of the (possibly partial)
+    range before the first block, and ``end_edge`` stops the stream after
+    that many records of the range, so ``[start_edge, end_edge)`` is a
+    contiguous record slice; an empty slice yields no blocks.  Raw records
+    only: SHEEP_DDUP_GRAPH is not applied (block-local dedup would differ
+    from load-level dedup), and a warning says so.  Trust mode: a torn
+    trailing record is dropped; a short read mid-stream raises
+    ValueError."""
+    if os.environ.get("SHEEP_DDUP_GRAPH", "") == "1":
+        warnings.warn("SHEEP_DDUP_GRAPH is ignored by the streaming block "
+                      "reader; dedup the file up front instead")
+    rec_size = _XS1_DTYPE.itemsize
+    num_records = os.path.getsize(path) // rec_size
+    if num_records == 0:
+        return
+    start, stop = partial_range(num_records, part, num_parts) \
+        if num_parts else (0, num_records)
+    base = start
+    if end_edge is not None:
+        stop = min(stop, base + max(0, end_edge))
+    if start_edge:
+        start = min(stop, base + start_edge)
+    with open(path, "rb") as f:
+        for a in range(start, stop, block_edges):
+            b = min(a + block_edges, stop)
+            f.seek(a * rec_size)
+            raw = np.fromfile(f, dtype=_XS1_DTYPE, count=b - a)
+            if len(raw) < b - a:
+                raise ValueError(f"{path}: short read at record {a} (file "
+                                 f"truncated mid-stream?)")
+            yield np.ascontiguousarray(raw["tail"]), \
+                np.ascontiguousarray(raw["head"])
 
 
 def read_net(path: str, part: int = 0, num_parts: int = 0) -> EdgeList:

@@ -23,11 +23,15 @@ handoff whose fold counts pst itself.  Any stream failure falls back to a
 serial fetch of the same device arrays, and ``perf["stream_mode"]`` says
 so.
 
-``SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0`` selects the serial arm:
-one fetch of the reduced links, one fold.  The reference's speculative
-overlapped snapshot (its ``_SpecHandoff``: stream off, overlap on, which
-an accelerator defaults to once the stream is off) is not ported; that
-combination raises NotImplementedError.  Where the reference branches on
+``SHEEP_STREAM_HANDOFF=0`` selects the serial arm: one fold of one
+reduced link set.  With the overlap on (:func:`_overlap_enabled`, the
+default on CUDA) that set comes from the speculative overlapped snapshot
+(:class:`_SpecHandoff`): once the live links fall under a threshold, a
+background stream starts fetching the current snapshot while the reduce
+loop goes on, and the loop stops as soon as a stream has landed.  Any
+snapshot, or union of snapshots, hands off exactly, since every round
+preserves threshold connectivity.  ``SHEEP_OVERLAP_HANDOFF=0`` makes the
+serial arm fetch once after the loop.  Where the reference branches on
 the JAX platform, the port branches on ``device.type``; the env knobs keep
 their meanings.
 """
@@ -147,7 +151,11 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     rounds, live, fetch_tail_s, handoff_links, packed_handoff, fold_s,
     pst_wait_s, prefetch_s (the seq/pst prefetch thread's own time, when
     it runs), fetch_windows and, from the streamed tail, stream_mode,
-    window_fetch_s, window_fold_s, overlap_s and overlap_frac.
+    window_fetch_s, window_fold_s, window_fetch_phases, overlap_s and
+    overlap_frac, or, from the serial arm's speculative snapshot,
+    overlap, spec_starts, spec_restarts, spec_wasted_mb,
+    spec_stopped_loop, spec_mode, spec_start_live and spec_fetch_phases
+    (:func:`fetch_phases`).
     """
     device = resolve_device(device)
     if handoff_factor is None:
@@ -292,8 +300,7 @@ def stream_handoff_enabled() -> bool:
     """The streamed windowed handoff gate (SHEEP_STREAM_HANDOFF
     overrides; default on).  An explicit SHEEP_OVERLAP_HANDOFF=1 without
     an explicit stream choice turns it off, as in the reference, so that
-    arm names what it runs (and the port then raises: it has no
-    speculative snapshot)."""
+    arm names what it runs (the serial arm's speculative snapshot)."""
     v = os.environ.get("SHEEP_STREAM_HANDOFF", "")
     if v != "":
         return v == "1"
@@ -327,10 +334,10 @@ def host_seq_mode(device: torch.device) -> bool:
 
 
 def _overlap_enabled(device: torch.device) -> bool:
-    """The reference's speculative overlapped handoff gate
-    (SHEEP_OVERLAP_HANDOFF overrides): on for CUDA, off on the CPU.  The
-    port does not carry that handoff; the serial arm raises where it is
-    on."""
+    """The serial arm's speculative overlapped snapshot gate
+    (SHEEP_OVERLAP_HANDOFF overrides): on for CUDA, where the link fetch
+    is a real transfer worth hiding behind device rounds, off on the CPU,
+    where the fetch is a view."""
     v = os.environ.get("SHEEP_OVERLAP_HANDOFF", "")
     if v != "":
         return v == "1"
@@ -381,21 +388,57 @@ def _slice_rows(buf: torch.Tensor, start: int, length: int) -> torch.Tensor:
     return buf[start:start + length]
 
 
-def _to_host(parts, stream) -> list:
+def _to_host(parts, stream, phases: dict | None = None) -> list:
     """Host numpy copies of device tensors.  With a CUDA ``stream``: into
     pinned buffers by ``non_blocking`` copies on it, then one event that
     the host waits on before numpy may read them.  Without: plain copies
-    (the CPU, where pinned memory does not exist)."""
+    (the CPU, where pinned memory does not exist).  ``phases`` (see
+    :func:`fetch_phases`) gains the call's host seconds spent allocating
+    the buffers, enqueuing the copies and waiting on them, and on CUDA
+    the copies' device milliseconds."""
     cuda = stream is not None
+    t0 = time.perf_counter()
     outs = [torch.empty(p.shape, dtype=p.dtype, pin_memory=cuda)
             for p in parts]
+    t1 = time.perf_counter()
+    if cuda:
+        start = torch.cuda.Event(enable_timing=phases is not None)
+        start.record(stream)
     for out, part in zip(outs, parts):
         out.copy_(part, non_blocking=cuda)
+    t2 = time.perf_counter()
     if cuda:
-        done = torch.cuda.Event()
+        done = torch.cuda.Event(enable_timing=phases is not None)
         done.record(stream)
         done.synchronize()  # releases the GIL while it waits
+    t3 = time.perf_counter()
+    if phases is not None:
+        phases["alloc_s"] += t1 - t0
+        phases["copy_s"] += t2 - t1
+        phases["wait_s"] += t3 - t2
+        if cuda:
+            phases["device_ms"] += start.elapsed_time(done)
     return [out.numpy() for out in outs]
+
+
+def fetch_phases() -> dict:
+    """A fetch thread's breakdown, summed over its slices: ``slices``,
+    ``bytes``, ``busy_s`` (each slice's whole time), and of that the host
+    seconds allocating pinned buffers (``alloc_s``), enqueuing the copies
+    (``copy_s``) and waiting on them (``wait_s``), and the copies' device
+    milliseconds (``device_ms``, CUDA events around them)."""
+    return {"slices": 0, "bytes": 0, "busy_s": 0.0, "alloc_s": 0.0,
+            "copy_s": 0.0, "wait_s": 0.0, "device_ms": 0.0}
+
+
+def merge_phases(parts) -> dict:
+    """The sum of several :func:`fetch_phases` dicts, rounded."""
+    total = fetch_phases()
+    for part in parts:
+        for k in total:
+            total[k] += part[k]
+    return {k: v if isinstance(v, int) else round(v, 4)
+            for k, v in total.items()}
 
 
 class _StreamFetcher:
@@ -408,7 +451,11 @@ class _StreamFetcher:
     slice.  On CUDA the fetch thread copies on its own side stream, which
     first waits on an event recorded on the caller's current stream after
     the pack, and it keeps the packed buffer alive (``record_stream``)
-    until it ends.
+    until it ends.  In the int32-pair mode the buffers are the snapshot's
+    own lo and hi, not copies: the same event orders the side stream after
+    their producer, ``record_stream`` keeps the caching allocator from
+    handing their memory to the caller's later kernels while the copies
+    run, and the reduce loop never writes a snapshot it handed out.
     """
 
     def __init__(self, lo: torch.Tensor, hi: torch.Tensor, n: int,
@@ -427,6 +474,7 @@ class _StreamFetcher:
         self.failed = False
         self.error: Exception | None = None  # what ended the thread
         self._slice_s: list = []  # per-slice fetch seconds
+        self.phases = fetch_phases()
         self._abort = False
         self._slices: list = []
         if self.packed:
@@ -482,7 +530,10 @@ class _StreamFetcher:
             start = i * self.slice_len
             with _timed(self._slice_s):
                 got = _to_host([_slice_rows(buf, start, self.slice_len)
-                                for buf in self._dev], side)
+                                for buf in self._dev], side, self.phases)
+            self.phases["slices"] += 1
+            self.phases["bytes"] += sum(a.nbytes for a in got)
+            self.phases["busy_s"] += self._slice_s[-1]
             self._slices.append(got[0] if self.packed else tuple(got))
             self.done_slices = i + 1
             self._on_slice()
@@ -493,6 +544,9 @@ class _StreamFetcher:
     def remaining_bytes(self) -> int:
         return (self.total_slices - self.done_slices) * self.slice_len \
             * self.bytes_per_link
+
+    def fetched_bytes(self) -> int:
+        return self.done_slices * self.slice_len * self.bytes_per_link
 
     def join(self, timeout: float | None = None,
              mark_failed: bool = True) -> bool:
@@ -709,43 +763,212 @@ def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
             "packed_handoff": stream.packed if stream is not None
             else False,
         })
+        if stream is not None:
+            perf["window_fetch_phases"] = merge_phases([stream.phases])
     return parent, pst_out
+
+
+class _SpecHandoff:
+    """The speculative overlapped handoff of the serial arm (the
+    reference's ``_SpecHandoff``).
+
+    Soundness: every chunk output has the same threshold connectivity as
+    the input links, the forest is a function of threshold connectivity
+    only, and the fold takes an arbitrary-order multiset, so any complete
+    snapshot hands off exactly, and so does a union of (partial or
+    complete) snapshots.  Partial buffers of abandoned fetches are kept
+    and folded beside one complete snapshot; a wrong guess costs bytes,
+    never exactness.  A snapshot is never written after the loop hands it
+    out (``reduce_links_hosted``'s ``watch``), so a stream reads what it
+    was given.
+
+    Policy: once live <= SHEEP_OVERLAP_SPEC_FACTOR * n (default 8) and
+    the snapshot is at least SHEEP_OVERLAP_MIN_MB (default 4), stream it
+    (SHEEP_OVERLAP_SLICE links a slice) while the loop keeps reducing.  At
+    each later chunk: a finished stream stops the loop; a stream whose
+    bytes still in flight exceed MARGIN times a fresh fetch of the
+    smaller snapshot is abandoned (its partial kept) and restarted on the
+    smaller one.  At the loop's end, wait out the stream when its
+    remainder is cheaper than a fresh fetch of the final set, else
+    abandon it and fetch the final set serially.
+    """
+
+    MARGIN = 1.25
+
+    def __init__(self, n: int, device: torch.device):
+        self.n = n
+        self.bpl = 6 if pack_handoff(n, device) else 8
+        self.spec_live = int(os.environ.get(
+            "SHEEP_OVERLAP_SPEC_FACTOR", "8")) * n
+        self.slice_links = int(os.environ.get(
+            "SHEEP_OVERLAP_SLICE", str(1 << 18)))
+        self.min_bytes = int(float(os.environ.get(
+            "SHEEP_OVERLAP_MIN_MB", "4")) * (1 << 20))
+        self.active: _StreamFetcher | None = None
+        self.kept: list[tuple[np.ndarray, np.ndarray]] = []
+        self.dead = False  # a failed fetch disables further speculation
+        self.phases: list[dict] = []  # each started fetcher's breakdown
+        self.stats: dict = {"overlap": True, "spec_starts": 0,
+                            "spec_restarts": 0, "spec_wasted_mb": 0.0,
+                            "spec_stopped_loop": False,
+                            "spec_mode": "never_started"}
+
+    @staticmethod
+    def maybe(n: int, device: torch.device) -> "_SpecHandoff | None":
+        """A speculation policy where the overlap gate is on, else None
+        (the port's fold is always native, so it is the gate alone)."""
+        if not _overlap_enabled(device):
+            return None
+        return _SpecHandoff(n, device)
+
+    def _start(self, lo, hi, live: int) -> None:
+        try:
+            self.active = _StreamFetcher(lo, hi, self.n, live,
+                                         self.slice_links)
+            self.phases.append(self.active.phases)
+            self.stats["spec_starts"] += 1
+            self.stats.setdefault("spec_start_live", live)
+        except Exception:
+            self.active = None
+            self.dead = True
+
+    def _abandon(self) -> None:
+        f = self.active
+        self.active = None
+        if f is None:
+            return
+        f.abort()
+        self.stats["spec_wasted_mb"] = round(
+            self.stats["spec_wasted_mb"] + f.fetched_bytes() / (1 << 20), 2)
+        if not f.failed and f.done_slices:
+            self.kept.append(f.collect())
+        if f.failed:
+            self.dead = True
+
+    def on_chunk(self, lo, hi, live) -> bool:
+        """``reduce_links_hosted``'s ``watch`` hook: True stops the
+        loop."""
+        live = int(live)
+        if self.dead:
+            return False
+        if self.active is not None:
+            if self.active.failed:
+                self._abandon()
+                return False
+            if self.active.finished():
+                self.stats["spec_stopped_loop"] = True
+                return True
+            if self.active.remaining_bytes() > \
+                    live * self.bpl * self.MARGIN:
+                self.stats["spec_restarts"] += 1
+                self._abandon()
+                # a restart keeps the first start's floor: below it the
+                # fetch costs less than a new pack
+                if not self.dead and live * self.bpl >= self.min_bytes:
+                    self._start(lo, hi, live)
+            return False
+        if live <= self.spec_live and live * self.bpl >= self.min_bytes:
+            self._start(lo, hi, live)
+        return False
+
+    def abort_all(self) -> None:
+        """Converged without a handoff: nothing to collect."""
+        if self.active is not None:
+            self.active.abort()
+            self.active = None
+        self.kept = []
+
+    def complete(self, lo, hi, live: int) -> tuple[np.ndarray, np.ndarray]:
+        """The host handoff link set at the loop's end: one complete
+        snapshot (streamed or freshly fetched) plus any kept partials,
+        lo < n filtered."""
+        live = int(live)
+        mode = "plain"
+        lo_h = hi_h = None
+        f = self.active
+        if f is not None and not f.failed:
+            if f.finished():
+                mode = "spec_complete"
+            elif f.remaining_bytes() <= live * self.bpl:
+                mode = "spec_wait"
+                # a generous watchdog (0.5 MB/s plus grace): a wedged
+                # stream falls back to the serial fetch, never holds
+                f.join(timeout=f.remaining_bytes() / 5e5 + 120.0)
+            else:
+                self._abandon()
+                f = None
+                mode = "restart_final"
+            if f is not None and not f.failed:
+                lo_h, hi_h = f.collect()
+                self.active = None
+        if lo_h is None:
+            # never started, failed or abandoned at the end: fetch the
+            # final reduced set the serial way
+            lo_h, hi_h, _ = fetch_links_host(lo, hi, live, self.n)
+            if mode == "spec_wait":
+                # the watchdog fired mid-wait: say so, and count its bytes
+                mode = "spec_wait_timeout"
+                if f is not None:
+                    self.stats["spec_wasted_mb"] = round(
+                        self.stats["spec_wasted_mb"]
+                        + f.fetched_bytes() / (1 << 20), 2)
+            elif mode != "restart_final":
+                mode = "plain"
+        if self.kept:
+            klo, khi = zip(*self.kept)
+            lo_h = np.concatenate([lo_h, *klo])
+            hi_h = np.concatenate([hi_h, *khi])
+            self.kept = []
+        keep = lo_h < self.n
+        self.stats["spec_mode"] = mode
+        return np.ascontiguousarray(lo_h[keep]), \
+            np.ascontiguousarray(hi_h[keep])
 
 
 def reduce_and_fetch_links(lo, hi, n: int, stop_live: int,
                            handoff_input: bool = False, perf=None):
-    """The serial arm's reduce + fetch.  Returns (kind, a, b, live,
-    rounds): kind "device" (converged before the threshold; a/b are
-    device link tensors) or "host" (a/b are the fetched, lo<n-filtered
-    host link arrays).  ``perf`` gains loop_s, fetch_tail_s, rounds, live
-    and, on a handoff, handoff_links and packed_handoff.
-
-    Raises NotImplementedError where the reference would run its
-    speculative overlapped snapshot instead (:func:`_overlap_enabled`)."""
-    if _overlap_enabled(lo.device):
-        raise NotImplementedError(
-            "the speculative overlapped handoff (the reference's "
-            "_SpecHandoff: SHEEP_STREAM_HANDOFF=0 with SHEEP_OVERLAP_HANDOFF "
-            "on, the default on CUDA) is not ported (ROADMAP.md, port queue "
-            "item 1); set SHEEP_OVERLAP_HANDOFF=0 for the serial handoff, "
-            "or leave SHEEP_STREAM_HANDOFF on")
+    """The serial arm's reduce + fetch: chunk rounds to ``stop_live``
+    with the speculative overlapped fetch where :func:`_overlap_enabled`
+    (:class:`_SpecHandoff`), a serial fetch after the loop elsewhere.
+    Returns (kind, a, b, live, rounds): kind "device" (converged before
+    the threshold; a/b are device link tensors) or "host" (a/b are the
+    fetched, lo<n-filtered host link arrays).  ``perf`` gains loop_s,
+    fetch_tail_s, rounds, live and, on a handoff, handoff_links (the
+    links actually handed off, kept partials included) and
+    packed_handoff; with the speculation also its stats (overlap,
+    spec_starts, spec_restarts, spec_wasted_mb, spec_stopped_loop,
+    spec_mode, spec_start_live) and ``spec_fetch_phases``, its fetch
+    threads' :func:`fetch_phases` summed."""
+    spec = _SpecHandoff.maybe(n, lo.device)
     t0 = time.perf_counter()
     lo, hi, live, rounds, converged = reduce_links_hosted(
-        lo, hi, n, stop_live=stop_live, handoff_input=handoff_input)
+        lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
+        watch=spec.on_chunk if spec is not None else None)
     t1 = time.perf_counter()
     if perf is not None:
         perf["loop_s"] = round(t1 - t0, 4)
         perf["rounds"] = int(rounds)
         perf["live"] = int(live)
     if converged:
+        if spec is not None:
+            spec.abort_all()
         if perf is not None:
             perf["fetch_tail_s"] = 0.0
+            if spec is not None:
+                perf.update(spec.stats)
+                perf["spec_fetch_phases"] = merge_phases(spec.phases)
         return "device", lo, hi, int(live), rounds
-    lo_h, hi_h, packed = fetch_links_host(lo, hi, int(live), n)
+    if spec is not None:
+        lo_h, hi_h = spec.complete(lo, hi, int(live))
+    else:
+        lo_h, hi_h, _ = fetch_links_host(lo, hi, int(live), n)
     if perf is not None:
         perf["fetch_tail_s"] = round(time.perf_counter() - t1, 4)
         perf["handoff_links"] = int(len(lo_h))
-        perf["packed_handoff"] = packed
+        perf["packed_handoff"] = pack_handoff(n, lo.device)
+        if spec is not None:
+            perf.update(spec.stats)
+            perf["spec_fetch_phases"] = merge_phases(spec.phases)
     return "host", lo_h, hi_h, int(live), rounds
 
 

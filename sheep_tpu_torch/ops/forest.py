@@ -109,6 +109,55 @@ def _jump(lo: torch.Tensor, hi: torch.Tensor, n: int, levels: int,
                          sorted_links)
 
 
+def _sort_step(lo: torch.Tensor, hi: torch.Tensor, n: int):
+    """Sort + star->chain rewrite (the fixpoint's accelerator: a pure jump
+    round finds a hub's chain one link a round)."""
+    lo, hi = sort_links(lo, hi)
+    lo, hi, _ = _rewrite_sorted(lo, hi, n)
+    return lo, hi
+
+
+def _round_step(lo: torch.Tensor, hi: torch.Tensor, do_sort: bool, n: int,
+                levels: int):
+    """One jump round, after a sort rewrite when ``do_sort``.  Returns
+    (lo, hi, moved), ``moved`` counting the links whose lo advanced."""
+    if do_sort:
+        lo, hi = _sort_step(lo, hi, n)
+    lo, moved = _jump(lo, hi, n, levels, sorted_links=do_sort)
+    return lo, hi, moved
+
+
+#: the fixpoint's least jump depth (the reference's _JUMP_LEVELS)
+_JUMP_LEVELS = 6
+
+
+def forest_fixpoint(lo: torch.Tensor, hi: torch.Tensor, n: int,
+                    jump_levels: int | None = None):
+    """Parent array of the elimination forest of links (lo -> hi), lo <
+    hi; links with lo == hi == n are ignored (sentinels).  Returns (parent
+    int32 [n] on lo's device with n marking roots, rounds).
+
+    The reference runs this as one ``while_loop`` on the device; torch has
+    none, so here it is a host loop with one sync a round (on ``moved``).
+    Rounds, sort schedule (a sort rewrite at rounds 7, 15, 31, ...) and
+    the default depth are the reference's, so the round count is too.  On
+    CUDA each round's descent runs through K1 (``_jump``)."""
+    if jump_levels is None:
+        jump_levels = max(_JUMP_LEVELS, int(np.ceil(np.log2(n + 2))) // 2)
+    levels = max(1, min(jump_levels, int(np.ceil(np.log2(n + 2)))))
+    lo, hi = _i32(lo), _i32(hi)
+    if lo.shape[0] == 0:
+        return torch.full((n,), n, dtype=torch.int32, device=lo.device), 0
+    rounds = 0
+    moved = 1  # a non-empty input always runs its first round
+    while moved > 0:
+        do_sort = rounds >= 7 and (rounds & (rounds + 1)) == 0
+        lo, hi, moved_t = _round_step(lo, hi, do_sort, n, levels)
+        rounds += 1
+        moved = int(moved_t)  # one sync a round
+    return parent_from_links(lo, hi, n), rounds
+
+
 def _chunk_round(lo, hi, n: int, levels: int):
     """One production round: sort -> chain rewrite -> L-level jump.
     Returns (lo, hi, moved, live), ``live`` counting non-sentinel links
@@ -410,7 +459,7 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
                         stop_live: int = 0, levels: int = 10,
                         jrounds: int = 8, first_levels: int = 4,
                         handoff_input: bool = False,
-                        handoff_sort: bool = True):
+                        handoff_sort: bool = True, watch=None):
     """Run chunk rounds until convergence (or until live <= stop_live),
     compacting between chunks.
 
@@ -430,6 +479,17 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
     the native fold; one plain sort first at n >= 2^21, which
     ``handoff_sort`` False skips: the streamed tail orders its windows
     by hi itself).
+
+    ``watch``: an optional hook called with the snapshot ``(lo, hi,
+    live)`` once a chunk's stats resolve and neither convergence nor the
+    stop has ended the loop, only while no vertex remap is active (the
+    snapshot is in the original vertex space, with every live link in its
+    first ``live`` slots).  Returning True stops the loop there
+    (converged=False).  The hybrid's speculative handoff fetches such a
+    snapshot while later chunks run (``ops.build._SpecHandoff``).  Nothing
+    writes into a tensor once it was handed out: every round, compaction,
+    remap, host assist and K1 launch writes only into tensors it
+    allocates, so a snapshot stays what it was while a fetch reads it.
     """
     lo, hi = _i32(lo), _i32(hi)
     e = int(lo.shape[0])
@@ -473,6 +533,8 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
         if stop_live and live_i <= stop_live:
             rlo, rhi = _restore(alo, ahi)
             return (rlo, rhi, live_i, rounds_ret, False), live_i, moved_i
+        if watch is not None and back is None and watch(alo, ahi, live_i):
+            return (alo, ahi, live_i, rounds_ret, False), live_i, moved_i
         return None, live_i, moved_i
 
     def _compact(alo, ahi, live_i):

@@ -13,6 +13,9 @@ on any other; ``add_one_plain`` and ``jump_step_plain`` are the same
 functions in plain torch; :func:`dispatch` runs the plain version on CPU
 tensors only.  ``launches`` counts launches by kernel name, incremented
 only where a kernel is launched.
+
+P2 marks its gathers into f L2 evict_last and streams lo, hi and out
+evict-first (the source note of ``csrc/probe_kernels.cu``).
 """
 
 from __future__ import annotations
@@ -94,8 +97,9 @@ def add_one_plain(x: torch.Tensor) -> torch.Tensor:
 
 def jump_step(f: torch.Tensor, lo: torch.Tensor,
               hi: torch.Tensor) -> torch.Tensor:
-    """Launch P2: ``nlo = f[clamp(lo)]; out = nlo < hi ? nlo : lo`` on
-    int32 CUDA tensors (f [width], lo/hi [E])."""
+    """Launch P2: ``nlo = f[lo]; out = nlo < hi ? nlo : lo`` on int32
+    CUDA tensors (f [width], lo/hi [E]), lo indexed as jnp indexes
+    (:func:`jump_step_plain`)."""
     _check("jump_step", f=f, lo=lo, hi=hi)
     if f.dim() != 1 or f.numel() < 1:
         raise ValueError(f"jump_step: f must be 1-D and non-empty, got "
@@ -118,9 +122,11 @@ def jump_step(f: torch.Tensor, lo: torch.Tensor,
 
 def jump_step_plain(f: torch.Tensor, lo: torch.Tensor,
                     hi: torch.Tensor) -> torch.Tensor:
-    """P2's function in plain torch, the gather index clamped as jnp's
-    gathers clamp."""
-    nlo = torch.index_select(f, 0, lo.clamp(0, f.numel() - 1))
+    """P2's function in plain torch, the gather index taken as jnp takes
+    it: a negative lo counts from the end, then it is clamped into f."""
+    width = f.numel()
+    idx = torch.where(lo < 0, lo + width, lo).clamp(0, width - 1)
+    nlo = torch.index_select(f, 0, idx)
     return torch.where(nlo < hi, nlo, lo)
 
 

@@ -1,7 +1,9 @@
 """The port on the card: kernels K1, P1 and P2 against their plain
-versions (K1 also in forced table groupings, P1 and K1 on views that are
-not 16-byte aligned and on ragged lengths), and the CUDA builds (the hybrid on both handoff arms) against
-the port's host oracle.
+versions (K1 also in forced table groupings; K1, P1 and P2 on views that
+are not 16-byte aligned and on ragged lengths; P2 also with lo outside
+the table), and the CUDA builds (the hybrid on the streamed, serial and
+speculative arms, the last also forced to hand off the snapshot its side
+stream fetched) against the port's host oracle.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 CUDA kernels with no CPU or interpret mode).  This file imports no jax, so it
@@ -9,6 +11,8 @@ runs on the GPU machine, which has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -165,6 +169,31 @@ def test_p2_jump_step_equals_plain(cuda, log_n, lo_over):
     assert torch.equal(got, probe.jump_step_plain(f, lo, hi))
 
 
+@pytest.mark.parametrize("layout", ["offset1", "offset2", "offset3", "tail3",
+                                    "wild", "wild_offset1"])
+def test_p2_layouts_equal_plain(cuda, layout):
+    """P2 on views at storage offsets 1-3 and a ragged E (its scalar path
+    and tail), and with lo below 0 and past the table on the int4 and the
+    scalar path: exactly its plain version, one launch."""
+    n = 1 << 16
+    rng = np.random.default_rng(31)
+    f = np.minimum(np.arange(n) + rng.integers(1, 64, n), n - 1)
+    wild = layout.startswith("wild")
+    lo = rng.integers(-n - 37, n + 37, n + 8) if wild \
+        else rng.integers(0, n, n + 8)
+    hi = lo + rng.integers(1, 1024, n + 8)
+    off = 0 if layout in ("tail3", "wild") else int(layout[-1])
+    size = n + 3 if layout == "tail3" else n
+    f, lo, hi = (torch.from_numpy(a.astype(np.int32)).to(cuda)
+                 for a in (f, lo, hi))
+    lo, hi = lo[off:off + size], hi[off:off + size]
+    before = probe.launches["jump_step"]
+    got = probe.jump_step(f, lo, hi)
+    torch.cuda.synchronize()
+    assert probe.launches["jump_step"] == before + 1
+    assert torch.equal(got, probe.jump_step_plain(f, lo, hi))
+
+
 @pytest.mark.parametrize("arm", ["stream", "serial"])
 def test_cuda_hybrid_arms_equal_oracle(cuda, monkeypatch, arm):
     """R-MAT 2^18 x 8 on the card: the streamed windowed tail (4 windows,
@@ -197,8 +226,117 @@ def test_cuda_hybrid_arms_equal_oracle(cuda, monkeypatch, arm):
 
 
 def test_cuda_speculative_arm_raises(cuda, monkeypatch):
+    """Stream off on the card is the speculative overlapped snapshot (the
+    overlap's CUDA default).  The port once refused it; it now runs it,
+    equal to the oracle, through K1.  (The name is the refusal's, kept.)"""
+    monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
+    for k in ("SHEEP_OVERLAP_HANDOFF", "SHEEP_HANDOFF_FACTOR",
+              "SHEEP_OVERLAP_SPEC_FACTOR"):
+        monkeypatch.delenv(k, raising=False)
+    # a floor and slices small enough that a stream starts at this size
+    monkeypatch.setenv("SHEEP_OVERLAP_MIN_MB", "0.01")
+    monkeypatch.setenv("SHEEP_OVERLAP_SLICE", str(1 << 14))
+    tail, head = rmat_edges(18, 8 << 18, seed=2)
+    want_seq = degree_sequence(tail, head)
+    want = build_forest(tail, head, want_seq)
+    perf = {}
+    pj.launches = 0
+    seq, forest = build_graph_hybrid(tail, head, perf=perf)
+    assert pj.launches > 0
+    assert perf["overlap"] is True and perf["spec_starts"] >= 1, perf
+    np.testing.assert_array_equal(seq, want_seq)
+    np.testing.assert_array_equal(forest.parent, want.parent)
+    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+
+
+@pytest.fixture
+def spec_forced(monkeypatch):
+    """Force one outcome of the speculative handoff through its seams.
+    "spec_complete": at each chunk after its start the stream is joined
+    (left to land) before the policy looks, so the loop stops on a
+    finished stream.  "spec_wait": each stream holds its last slice until
+    a caller joins it, and at each chunk and at the loop's end the policy
+    looks only once the stream has fetched the rest, so the loop ends
+    with the stream one slice short and ``complete`` waits it out.  The
+    slices copy on the side stream while the loop's next chunk runs."""
+    from sheep_tpu_torch.ops import build
+
+    class LastSliceHeld(build._StreamFetcher):
+        def __init__(self, *args, **kwargs):
+            self._gate = threading.Event()
+            self.at_gate = threading.Event()
+            super().__init__(*args, **kwargs)
+
+        def _wait_turn(self, i):
+            if i == self.total_slices - 1:
+                self.at_gate.set()
+                self._gate.wait(timeout=300)
+
+        def join(self, timeout=None, mark_failed=True):
+            self._gate.set()
+            return super().join(timeout, mark_failed)
+
+    def force(outcome):
+        on_chunk = build._SpecHandoff.on_chunk
+        complete = build._SpecHandoff.complete
+
+        def settle(spec):
+            if spec.active is None:
+                return
+            if outcome == "spec_complete":
+                spec.active.join(timeout=300)
+            else:
+                spec.active.at_gate.wait(timeout=300)
+
+        def settled_chunk(self, lo, hi, live):
+            settle(self)
+            return on_chunk(self, lo, hi, live)
+
+        def settled_complete(self, lo, hi, live):
+            settle(self)
+            return complete(self, lo, hi, live)
+
+        if outcome == "spec_wait":
+            monkeypatch.setattr(build, "_StreamFetcher", LastSliceHeld)
+        monkeypatch.setattr(build._SpecHandoff, "on_chunk", settled_chunk)
+        monkeypatch.setattr(build._SpecHandoff, "complete", settled_complete)
+
+    return force
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("outcome", ["spec_complete", "spec_wait"])
+def test_cuda_spec_arm_hands_off_streamed_snapshot(cuda, monkeypatch,
+                                                   spec_forced, outcome,
+                                                   packed):
+    """The speculative arm on the card handing off the snapshot its stream
+    fetched on the side stream while later chunks ran: the stream stops
+    the loop (spec_complete) or is waited out at the end (spec_wait),
+    6-byte packed and in int32 pairs, where the stream reads the loop's
+    own lo and hi.  Equal to the oracle, through K1."""
     monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
     monkeypatch.delenv("SHEEP_OVERLAP_HANDOFF", raising=False)
-    tail, head = rmat_edges(12, 8 << 12, seed=2)
-    with pytest.raises(NotImplementedError):
-        build_graph_hybrid(tail, head)
+    monkeypatch.setenv("SHEEP_OVERLAP_MIN_MB", "0.01")
+    monkeypatch.setenv("SHEEP_OVERLAP_SLICE", str(1 << 14))
+    monkeypatch.setenv("SHEEP_OVERLAP_SPEC_FACTOR", "64")
+    # the card's default, so a chunk follows the stream's start
+    monkeypatch.setenv("SHEEP_HANDOFF_FACTOR", "3")
+    if packed:
+        monkeypatch.delenv("SHEEP_PACK_HANDOFF", raising=False)
+    else:
+        monkeypatch.setenv("SHEEP_PACK_HANDOFF", "0")
+    spec_forced(outcome)
+    tail, head = rmat_edges(18, 8 << 18, seed=2)
+    want_seq = degree_sequence(tail, head)
+    want = build_forest(tail, head, want_seq)
+    perf = {}
+    pj.launches = 0
+    seq, forest = build_graph_hybrid(tail, head, perf=perf)
+    assert pj.launches > 0
+    assert perf["spec_mode"] == outcome, perf
+    assert perf["packed_handoff"] is packed, perf
+    assert perf["spec_stopped_loop"] is (outcome == "spec_complete"), perf
+    assert perf["spec_fetch_phases"]["slices"] >= 1, perf
+    np.testing.assert_array_equal(seq, want_seq)
+    np.testing.assert_array_equal(forest.parent, want.parent)
+    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)

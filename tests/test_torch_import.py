@@ -37,6 +37,7 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_module_loads_no_jax_and_no_sheep_tpu():
     mods = _modules()
     for mod in ("sheep_tpu_torch.ops.build", "sheep_tpu_torch.ops.probe",
+                "sheep_tpu_torch.ops.stream",
                 "sheep_tpu_torch.scripts.kernel_probe"):
         assert mod in mods
     prog = ("import importlib, sys\n"
@@ -95,6 +96,20 @@ def test_entry_points_default_to_cuda():
             fn(tail, head)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(tail, head, device="cuda")
+
+
+def test_streaming_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    from sheep_tpu_torch.ops import stream
+
+    blocks = [(np.array([0, 1], np.uint32), np.array([1, 2], np.uint32))]
+    pos = np.arange(3, dtype=np.int64)
+    for fn, args in ((stream.build_graph_streaming, (3, pos, 4)),
+                     (stream.build_graph_streaming_hosted, (3, pos, 4)),
+                     (stream.streaming_degree_histogram, (3,))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(iter(blocks), *args)
 
 
 def test_probe_tool_defaults_to_cuda(capsys):

@@ -120,3 +120,55 @@ def test_probe_tool_exits_1_on_failure(capsys, monkeypatch):
     rec = json.loads(capsys.readouterr().out.strip())
     assert rec["trivial_kernel"] == "ok"
     assert rec["jump_kernel_correct"] is False
+
+
+def _wild(n, seed, off=0, extra=0):
+    """The probe's f, and lo drawn below 0 (down to -n - 37, so past the
+    wrap too) and at or past the width, as views at storage offset
+    ``off`` of longer buffers."""
+    rng = np.random.default_rng(seed)
+    f = np.minimum(np.arange(n) + rng.integers(1, 64, n), n - 1)
+    size = n + extra
+    lo = rng.integers(-n - 37, n + 37, size + off)
+    hi = lo + rng.integers(-3, 1024, size + off)
+    lo_t = torch.from_numpy(lo.astype(np.int32))[off:off + size]
+    hi_t = torch.from_numpy(hi.astype(np.int32))[off:off + size]
+    return torch.from_numpy(f.astype(np.int32)), lo_t, hi_t
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("log_n", [8, 11])
+def test_jump_step_plain_offset_views_and_wild_lo(log_n, off):
+    """P2's plain version on views at storage offsets 0-3 (the layouts
+    that take the kernel's scalar path) with lo below 0 and past the
+    table: equal to the probe's jnp formula (jump_jnp) and to the
+    reference's jump_group with one table in interpret mode, which both
+    count a negative index from the end and clamp the rest."""
+    n = 1 << log_n
+    f, lo, hi = _wild(n, seed=log_n + off, off=off, extra=3)
+    assert lo.storage_offset() == off
+    assert (lo < -n).any() and (lo < 0).any() and (lo >= n).any()
+    got = probe.jump_step_plain(f, lo, hi).numpy()
+    fj, loj, hij = (jnp.asarray(t.numpy()) for t in (f, lo, hi))
+    nlo = fj[loj]
+    np.testing.assert_array_equal(got,
+                                  np.asarray(jnp.where(nlo < hij, nlo, loj)))
+    want = jump_group((fj,), loj, hij, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("log_n", [9, 13])
+def test_dispatch_jump_step_takes_plain_on_cpu(log_n, off):
+    """The probe tool's dispatcher on CPU views at storage offsets 0-3
+    with lo below 0 and past the table: the plain version, equal to the
+    probe's jnp formula (jump_jnp), and no launch counted."""
+    n = 1 << log_n
+    f, lo, hi = _wild(n, seed=100 + log_n + off, off=off, extra=off)
+    before = dict(probe.launches)
+    got = probe.dispatch(probe.jump_step, probe.jump_step_plain, f, lo, hi)
+    assert probe.launches == before
+    fj, loj, hij = (jnp.asarray(t.numpy()) for t in (f, lo, hi))
+    nlo = fj[loj]
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jnp.where(nlo < hij, nlo, loj)))

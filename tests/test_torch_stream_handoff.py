@@ -5,7 +5,7 @@ serial arm and the host oracle bit for bit: the window-count sweep, the
 card's window queue forced onto CPU tensors (packed and pair), the serial
 fallback on a fetch or fold failure, the host-seq arm, the reduced
 multiset's prep pst, a partial given order, the fetcher's modes, and the
-unported speculative arm refused."""
+speculative arm (stream off, overlap on) run."""
 
 import sys
 
@@ -250,16 +250,25 @@ def test_stream_gates(stream_env):
 
 @pytest.mark.parametrize("stream", ["0", ""])
 def test_speculative_overlap_arm_raises(stream_env, stream):
-    """Stream off and overlap on is the reference's _SpecHandoff, which
-    the port does not carry: it raises and runs no other tail."""
+    """Stream off and overlap on, explicitly or by the overlap alone, is
+    the speculative overlapped snapshot (_SpecHandoff).  The port once
+    refused it; it now runs it, and equals sheep_tpu's hybrid under the
+    same environment and the oracle.  (The name is the refusal's, kept.)"""
     n, tail, head = _graph(log_n=10)
     if stream:
         stream_env.setenv("SHEEP_STREAM_HANDOFF", stream)
     else:
         stream_env.delenv("SHEEP_STREAM_HANDOFF")
     stream_env.setenv("SHEEP_OVERLAP_HANDOFF", "1")
-    with pytest.raises(NotImplementedError, match="_SpecHandoff"):
-        PB.build_graph_hybrid(tail, head, n, device="cpu")
+    stream_env.setenv("SHEEP_OVERLAP_MIN_MB", "0.0001")
+    stream_env.setenv("SHEEP_OVERLAP_SLICE", "512")
+    perf = {}
+    got = PB.build_graph_hybrid(tail, head, n, handoff_factor=1, perf=perf,
+                                device="cpu")
+    assert "stream_mode" not in perf and perf["overlap"] is True, perf
+    assert perf["spec_starts"] >= 1, perf
+    _same(got, RB.build_graph_hybrid(tail, head, n, handoff_factor=1))
+    _same(got, _oracle(tail, head))
 
 
 def _links(rng, n, live, pad):
