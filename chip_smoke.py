@@ -55,13 +55,30 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    TREEFAQS line), build_graph_streaming on rmat_edges(20, 2^23, seed=1)
    in 4 blocks, and build_graph_streaming_hosted on the real-size graph
    in blocks of 2^24 records, each equal to the oracle;
-10. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
-11. a ``kernels`` JSON line, the card's name and power limit, then the
+10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
+    single -> host -> stream -> spill, checkpoints in a temporary
+    directory) on the real-size graph: equal to the oracle, no degrade,
+    K1 launched on the single rung; wall beside the streamed hybrid's of
+    phase 6, prep/rung/enqueue seconds from the build's own trace
+    (SHEEP_TRACE), the loop's device waits, boundary fetches, host
+    assists and remaps, each snapshot's seconds and bytes, peak device
+    memory;
+11. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
+12. the fault-tolerant build on that graph: a kill at every checkpoint
+    boundary in turn, each resumed to the uninterrupted forest with a
+    ``resume`` event; an injected chunk fault twice (retries); a forced
+    degrade single -> host; a dispatch raising a real CUDA out-of-memory
+    error (retried, exhausted, degraded); a dispatch held on the card
+    (torch.cuda._sleep) past a 0.5 s watchdog; each equal to the oracle;
+    no resume degrades, and each resume on the single rung launches K1;
+    K1 failing to launch fails the build with no retry and no degrade
+    (``resilient {...}`` lines);
+13. a ``kernels`` JSON line, the card's name and power limit, then the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Every launch count is set to 0 just before each driven path and read just
-after: each build (the streaming builds too) must have launched K1, and
-the probe tool P1 and P2.
+after: each build (the streaming builds and the unfaulted resilient
+builds too) must have launched K1, and the probe tool P1 and P2.
 Imports nothing of JAX or sheep_tpu.
 """
 
@@ -939,6 +956,379 @@ def device_phase(device: torch.device, data=None, log_n: int = 20,
     return rec
 
 
+class SaveRecorder:
+    """Times every checkpoint save of the fault-tolerant build and reads
+    the snapshot's size on disk, with no knob in the package: it wraps
+    ``runtime.snapshot.Checkpointer.save`` while entered."""
+
+    def __init__(self):
+        self.saves: list = []
+
+    def __enter__(self):
+        from sheep_tpu_torch.runtime import snapshot
+
+        self._saved = snapshot.Checkpointer.save
+        save = self._saved
+
+        def timed_save(ck, snap):
+            t0 = time.perf_counter()
+            save(ck, snap)
+            self.saves.append({"boundary": snap.boundary, "rung": snap.rung,
+                               "links": int(len(snap.lo)),
+                               "bytes": os.path.getsize(ck.path),
+                               "s": time.perf_counter() - t0})
+
+        snapshot.Checkpointer.save = timed_save
+        return self
+
+    def __exit__(self, *exc):
+        from sheep_tpu_torch.runtime import snapshot
+
+        snapshot.Checkpointer.save = self._saved
+        return False
+
+
+class LoopRecorder:
+    """Splits the single rung's time with no knob in the package: it wraps,
+    while entered, the dispatch sync (``runtime.retry.sync_outputs``: the
+    wait for each dispatch's device work), the boundary fetch
+    (``ops.forest._live_links_np``: the live links to the host), the
+    plateau's host assist (``ops.forest._PlateauSched.assist``) and the
+    vertex remap (``ops.forest.vremap_compact``), summing each one's
+    host-clock seconds and calls."""
+
+    def __init__(self):
+        self.parts = {name: [0, 0.0] for name in
+                      ("sync", "boundary_fetch", "assist", "remap")}
+
+    def _timed(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                part = self.parts[name]
+                part[0] += 1
+                part[1] += time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        from sheep_tpu_torch.ops import forest
+        from sheep_tpu_torch.runtime import retry
+
+        self._saved = (retry.sync_outputs, forest._live_links_np,
+                       forest._PlateauSched.assist, forest.vremap_compact)
+        retry.sync_outputs = self._timed("sync", self._saved[0])
+        forest._live_links_np = self._timed("boundary_fetch", self._saved[1])
+        forest._PlateauSched.assist = self._timed("assist", self._saved[2])
+        forest.vremap_compact = self._timed("remap", self._saved[3])
+        return self
+
+    def __exit__(self, *exc):
+        from sheep_tpu_torch.ops import forest
+        from sheep_tpu_torch.runtime import retry
+
+        (retry.sync_outputs, forest._live_links_np,
+         forest._PlateauSched.assist, forest.vremap_compact) = self._saved
+        return False
+
+    def record(self) -> dict:
+        return {f"{name}_s": t for name, (_, t) in self.parts.items()} | {
+            f"{name}_calls": c for name, (c, _) in self.parts.items()}
+
+
+#: the ladder the resilient phase runs: every rung the port has
+RESILIENT_LADDER = ("single", "host", "stream", "spill")
+
+
+def resilient_run(tail, head, device, ckdir, plan=None, **kw):
+    """One ``runtime.build_graph_resilient`` on ``device`` with its
+    checkpoints in ``ckdir`` and ``plan`` (site, at, kind, times)
+    installed; returns (seq, forest, config), a BuildKilled propagates."""
+    from sheep_tpu_torch.runtime import (FaultPlan, RuntimeConfig,
+                                         build_graph_resilient, clear_plan,
+                                         install_plan)
+
+    kw.setdefault("ladder", RESILIENT_LADDER)
+    cfg = RuntimeConfig(checkpoint_dir=ckdir, backoff_base_s=0.0, **kw)
+    if plan is not None:
+        install_plan(FaultPlan(*plan))
+    try:
+        seq, forest = build_graph_resilient(tail, head, config=cfg,
+                                            device=device)
+    finally:
+        clear_plan()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return seq, forest, cfg
+
+
+def event_kinds(cfg) -> dict:
+    kinds: dict = {}
+    for e in cfg.events:
+        kinds[e[0]] = kinds.get(e[0], 0) + 1
+    return kinds
+
+
+def resilient_real(device, data, hybrid_wall: float):
+    """The fault-tolerant build at real size on the card: equal to the
+    oracle, no degrade, K1 launched on the single rung; its wall beside
+    the streamed hybrid's, and its parts from the build's own trace
+    (SHEEP_TRACE: the prep and rung spans, the dispatch spans), from
+    :class:`SaveRecorder` (each snapshot's seconds and bytes) and from
+    :class:`LoopRecorder` (the loop's device waits, boundary fetches,
+    host assists and remaps)."""
+    import tempfile
+
+    from sheep_tpu_torch.obs import trace
+
+    tail, head, want_seq, want = data
+    with tempfile.TemporaryDirectory(prefix="sheep-resilient.") as tmp:
+        path = os.path.join(tmp, "build.trace")
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with SaveRecorder() as saves, LoopRecorder() as loop, \
+                env_set({"SHEEP_TRACE": path}):
+            (seq, forest, cfg), wall, launches = counted_build(
+                lambda: resilient_run(tail, head, device,
+                                      os.path.join(tmp, "ckpt")),
+                "real-size resilient build")
+        trace.close_recorder()
+        records, _, _ = trace.read_trace(path, "strict")
+    if not forest_equal(seq, forest, want_seq, want):
+        raise AssertionError("real-size resilient build differs from the "
+                             "oracle")
+    kinds = event_kinds(cfg)
+    if "degrade" in kinds:
+        raise AssertionError(f"real-size resilient build degraded with no "
+                             f"fault: {cfg.events}")
+
+    def spans(name):
+        return [r for r in records if r["k"] == "span" and r["name"] == name]
+
+    rung_s = sum(r["dur"] for r in spans("rung"))
+    in_rung = [x["s"] for x in saves.saves if x["boundary"] > 0]
+    rec = {"records": len(tail), "links": saves.saves[0]["links"],
+           "wall_s": wall, "hybrid_wall_s": hybrid_wall,
+           "prep_s": sum(r["dur"] for r in spans("prep")),
+           "rung_s": rung_s,
+           # the dispatch spans cover each dispatch's host enqueue; its
+           # device work is waited for in the sync after it (sync_s)
+           "enqueue_s": sum(r["dur"] for r in spans("dispatch")),
+           "dispatches": len(spans("dispatch")),
+           "checkpoint_s": sum(x["s"] for x in saves.saves),
+           # the rung's loop without its checkpoint writes (the boundary
+           # fetches stay in it)
+           "loop_s": rung_s - sum(in_rung), **loop.record(),
+           "boundaries": kinds.get("checkpoint", 0),
+           "save_bytes": [x["bytes"] for x in saves.saves],
+           "save_s": [x["s"] for x in saves.saves],
+           "k1_launches": launches, "events": kinds}
+    if device.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log("resilient " + json.dumps({"case": "real_size", **rec}))
+    return rec
+
+
+@contextlib.contextmanager
+def chunk_patched(wrap):
+    """Replace ``ops.forest.fixpoint_chunk`` (the chunk dispatch's body)
+    by ``wrap(real)`` inside the block: a seam, no knob in the package."""
+    from sheep_tpu_torch.ops import forest
+
+    real = forest.fixpoint_chunk
+    forest.fixpoint_chunk = wrap(real)
+    try:
+        yield
+    finally:
+        forest.fixpoint_chunk = real
+
+
+def _oom_chunk(real):
+    def chunk(lo, hi, n, levels, jrounds):
+        if lo.device.type != "cuda":  # the CPU rehearsal: the same type
+            raise torch.cuda.OutOfMemoryError("CPU rehearsal")
+        # an impossible allocation on the card: 1 PiB
+        torch.empty(1 << 50, dtype=torch.uint8, device=lo.device)
+        raise AssertionError("an allocation of 1 PiB succeeded")
+    return chunk
+
+
+#: cycles the watchdog case holds its chunk on the card (about 2 s at the
+#: H100's 1.98 GHz boost clock, longer at a lower one)
+HOLD_CYCLES = 4_000_000_000
+
+
+def _held_chunk(real):
+    def chunk(lo, hi, n, levels, jrounds):
+        if lo.device.type == "cuda":
+            torch.cuda._sleep(HOLD_CYCLES)
+        else:  # the CPU rehearsal holds the host instead
+            time.sleep(HOLD_CYCLES / 2e9)
+        return real(lo, hi, n, levels, jrounds)
+    return chunk
+
+
+def resilient_faults(device, data):
+    """On ``data`` (R-MAT 2^20 x 8): the uninterrupted build, then a kill
+    at every checkpoint boundary in turn, each followed by a resume that
+    must give the uninterrupted forest and show a ``resume`` event; then
+    an injected chunk fault twice (retries), a forced degrade single ->
+    host, a dispatch that raises a real out-of-memory error (retryable,
+    its budget exhausted, degraded) and a dispatch held on the card past
+    the watchdog (DeadlineExceeded, then a retry or a degrade).  Every
+    forest equals the oracle; the unforced runs (the uninterrupted build
+    and every resume) never degrade.  Last, K1 failing to launch must fail
+    the build (:func:`k1_failure`)."""
+    import tempfile
+
+    from sheep_tpu_torch.runtime import BuildKilled
+
+    tail, head, want_seq, want = data
+    recs = []
+
+    def run(case, plan=None, patch=None, expect=None, **kw):
+        threads = threading.active_count()
+        with tempfile.TemporaryDirectory(prefix="sheep-resilient.") as tmp, \
+                (chunk_patched(patch) if patch is not None
+                 else contextlib.nullcontext()):
+            reset_counts()
+            t0 = time.perf_counter()
+            seq, forest, cfg = resilient_run(tail, head, device,
+                                             os.path.join(tmp, "ckpt"),
+                                             plan, **kw)
+            wall = time.perf_counter() - t0
+            # a watchdog's abandoned attempts end once their held work
+            # has run: wait for their threads, so none outlives the script
+            deadline = time.monotonic() + 120
+            while threading.active_count() > threads \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+        if not forest_equal(seq, forest, want_seq, want):
+            raise AssertionError(f"resilient ({case}) differs from the "
+                                 f"oracle")
+        kinds = event_kinds(cfg)
+        rec = {"case": case, "records": len(tail), "wall_s": wall,
+               "k1_launches": read_counts()["fused_jump"], "events": kinds,
+               "degrades": [e[1:] for e in cfg.events if e[0] == "degrade"]}
+        log("resilient " + json.dumps(rec))
+        if expect is not None and not expect(kinds, rec["degrades"]):
+            raise AssertionError(f"resilient ({case}): unexpected events "
+                                 f"{cfg.events}")
+        recs.append(rec)
+        return cfg
+
+    base = run("uninterrupted",
+               expect=lambda k, d: "degrade" not in k and "retry" not in k)
+    if recs[-1]["k1_launches"] <= 0:
+        raise AssertionError("resilient build: K1 was not launched")
+    boundaries = event_kinds(base).get("checkpoint", 0)
+    if boundaries < 3:
+        raise AssertionError(f"resilient build: {boundaries} boundaries, "
+                             f"too few to exercise resume")
+    resumes = []
+    for k in range(boundaries):
+        with tempfile.TemporaryDirectory(prefix="sheep-resilient.") as tmp:
+            ckdir = os.path.join(tmp, "ckpt")
+            t0 = time.perf_counter()
+            try:
+                resilient_run(tail, head, device, ckdir,
+                              ("boundary", k, "kill"))
+            except BuildKilled:
+                pass
+            else:
+                raise AssertionError(f"kill at boundary {k} did not fire")
+            killed_s = time.perf_counter() - t0
+            reset_counts()
+            t0 = time.perf_counter()
+            seq, forest, cfg = resilient_run(tail, head, device, ckdir,
+                                             resume=True)
+            resume_s = time.perf_counter() - t0
+        resumed = [e for e in cfg.events if e[0] == "resume"]
+        if not resumed or not forest_equal(seq, forest, want_seq, want):
+            raise AssertionError(f"resume after a kill at boundary {k}: "
+                                 f"resumed={resumed}, forest equal="
+                                 f"{forest_equal(seq, forest, want_seq, want)}")
+        launches = read_counts()["fused_jump"]
+        # an unforced run: no degrade, and a resume on the single rung
+        # runs its remaining chunks on the card, through K1
+        if "degrade" in event_kinds(cfg) or (
+                resumed[0][1] == "single" and launches <= 0):
+            raise AssertionError(f"resume after a kill at boundary {k}: "
+                                 f"k1_launches={launches}, events "
+                                 f"{cfg.events}")
+        resumes.append({"boundary": k, "killed_s": killed_s,
+                        "resume_s": resume_s, "resumed": list(resumed[0][1:]),
+                        "k1_launches": launches})
+    log("resilient " + json.dumps({"case": "kill_and_resume",
+                                   "records": len(tail),
+                                   "boundaries": boundaries,
+                                   "resumes": resumes}))
+    run("retry", ("chunk", 1, "xla", 2),
+        expect=lambda k, d: k.get("retry", 0) >= 1 and not d)
+    run("forced_degrade", ("chunk", 0, "xla", -1), max_retries=1,
+        expect=lambda k, d: [x[:2] for x in d] == [("single", "host")])
+    run("cuda_oom", patch=_oom_chunk, max_retries=1,
+        expect=lambda k, d: len(d) == 1 and "OutOfMemoryError" in d[0][2])
+    run("watchdog", patch=_held_chunk, watchdog_s=0.5,
+        expect=lambda k, d: ("retry" in k and not d) or (
+            len(d) == 1 and ("DeviceHung" in d[0][2]
+                             or "DeadlineExceeded" in d[0][2])))
+    if device.type == "cuda":  # K1 launches only on the card
+        k1_failure(device, tail, head)
+    return recs, resumes
+
+
+class FailingK1:
+    """K1's library with its launch entry point failing (CUDA error 700,
+    an illegal address) and every other entry point the real one."""
+
+    def __init__(self, real):
+        self.real = real
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def sheep_fused_jump(self, *args):
+        return 700
+
+
+def k1_failure(device, tail, head):
+    """K1 failing to launch on the single rung: the build raises, with no
+    retry and no degrade (a kernel fault on the card is never finished on
+    the host)."""
+    import tempfile
+
+    from sheep_tpu_torch.ops import fused_jump
+    from sheep_tpu_torch.runtime import RuntimeConfig, build_graph_resilient
+
+    real = fused_jump.load_library
+    lib = FailingK1(real())
+    fused_jump.load_library = lambda: lib
+    try:
+        with tempfile.TemporaryDirectory(prefix="sheep-resilient.") as tmp:
+            cfg = RuntimeConfig(checkpoint_dir=os.path.join(tmp, "ckpt"),
+                                backoff_base_s=0.0, ladder=RESILIENT_LADDER)
+            try:
+                build_graph_resilient(tail, head, config=cfg, device=device)
+            except RuntimeError as exc:
+                if "fused_jump kernel launch failed" not in str(exc):
+                    raise
+                err = f"{type(exc).__name__}: {exc}"
+            else:
+                raise AssertionError("a failing K1 launch did not fail the "
+                                     "resilient build")
+    finally:
+        fused_jump.load_library = real
+    kinds = event_kinds(cfg)
+    if "retry" in kinds or "degrade" in kinds:
+        raise AssertionError(f"a failing K1 launch was retried or degraded: "
+                             f"{cfg.events}")
+    log("resilient " + json.dumps({"case": "k1_launch_failure",
+                                   "records": len(tail), "raised": err,
+                                   "events": kinds}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -967,10 +1357,12 @@ def main() -> int:
     fetch_phase(device)
     small_data = real_inputs(20, 23, 1)
     streaming_phase(device, real_data, small_data)
-    del real_data
-    device_phase(device, small_data)
     # the default tail's last run (the runs in between are other arms)
     main_run = next(r for r in reversed(real) if r["arm"] == "stream")
+    resilient_real(device, real_data, main_run["wall_s"])
+    del real_data
+    device_phase(device, small_data)
+    resilient_faults(device, small_data)
     timed = next(r for r in k1 if r["case"] == "real_L4")
     kernels = [{
         "name": "fused_jump", "route": "cuda",

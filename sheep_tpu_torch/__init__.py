@@ -5,23 +5,36 @@ counterpart is easy to find, but imports nothing of it (and never
 ``jax``): what it needs from the host-only layers it keeps as its own copy.
 
 Layout:
-  core/     host oracle: Forest, build_forest, sequences, tree facts,
-            the streamed handoff's window bounds and resumable fold
-  native/   ctypes binding of the sequential union-find fold, monolithic
-            and resumable (csrc/host_fold.cpp)
-  io/       edge-list readers (.dat XS1 binary, .net SNAP text)
-  ops/      device ops on torch tensors: sort, the reduce loop, the hybrid
-            build with its streamed windowed handoff, K1's wrapper
-            (ops/fused_jump.py, csrc/fused_jump.cu) and the backend
-            probe's kernels P1 and P2 (ops/probe.py, csrc/probe_kernels.cu)
-  scripts/  tools: the backend probe (python -m
-            sheep_tpu_torch.scripts.kernel_probe)
-  utils/    synthetic R-MAT graphs
-  convert   numpy state <-> tensors on a device
+  core/       host oracle: Forest, build_forest, sequences, tree facts,
+              the streamed handoff's window bounds and resumable fold,
+              the fast forest validator (core/validate.py)
+  native/     ctypes binding of the sequential union-find fold,
+              monolithic and resumable (csrc/host_fold.cpp)
+  io/         edge-list readers (.dat XS1 binary, .net SNAP text), the
+              crash-safe writer with its fault hooks, the block
+              prefetcher
+  ops/        device ops on torch tensors: sort, the reduce loop, the
+              hybrid build with its streamed windowed handoff, K1's
+              wrapper (ops/fused_jump.py, csrc/fused_jump.cu) and the
+              backend probe's kernels P1 and P2 (ops/probe.py,
+              csrc/probe_kernels.cu)
+  runtime/    the fault-tolerant build: retry, watchdog, checkpoint and
+              resume, the degradation ladder (build_graph_resilient)
+  integrity/, resources/, plan/, obs/
+              the host layers the runtime stands on: sidecar checksums,
+              budgets and retention, the rung planner, the trace
+  scripts/    tools: the backend probe (python -m
+              sheep_tpu_torch.scripts.kernel_probe)
+  utils/      synthetic R-MAT graphs, the environment capture
+  convert     numpy state <-> tensors on a device
+
+The host layers are copies of the reference's modules; their notes still
+name reference modules the port has not ported yet (serve/, supervisor/,
+the CLI, ops/extmem.py), whose queue is in ROADMAP.md.
 
 Entry points (``ops.build.build_graph_hybrid``, ``build_graph_device``,
-the probe tool) run on the CUDA card unless the caller passes
-``device="cpu"``.
+``runtime.build_graph_resilient``, the probe tool) run on the CUDA card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

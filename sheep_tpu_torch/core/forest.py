@@ -81,6 +81,12 @@ def links_fold(n: int, pst: np.ndarray | None = None):
     return native.LinksFold(n, pst)
 
 
+def forest_links(forest: Forest) -> tuple[np.ndarray, np.ndarray]:
+    """A tree's (kid, parent) pairs as link arrays."""
+    kids = np.nonzero(forest.parent != INVALID_JNID)[0].astype(np.int64)
+    return kids, forest.parent[kids].astype(np.int64)
+
+
 def build_forest(tail: np.ndarray, head: np.ndarray, seq: np.ndarray,
                  max_vid: int | None = None) -> Forest:
     """Build from raw edge records over a (possibly partial) graph."""

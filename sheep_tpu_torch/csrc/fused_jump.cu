@@ -7,9 +7,10 @@
 // each ancestor table T_k = f^(2^k) of one group, deepest stride first:
 //     lo <- T_k[lo]   where T_k[lo] < hi
 // and out[i] = the final lo.  f is the min-up-neighbour table [n+1]; slot n
-// absorbs sentinels (T_k[n] == n, and a dead link has lo == hi == n).  A lo
-// outside [0, width) is clamped for the gather, as the JAX reference's
-// gathers clamp, and stays unclamped where the step does not move it.
+// absorbs sentinels (T_k[n] == n, and a dead link has lo == hi == n).  The
+// gather index is jnp's, as the JAX reference's gathers take it: a negative
+// lo counts from the end (lo + width), then the index is clamped into
+// [0, width); the step keeps the lo it was given where it does not move it.
 //
 // What bounds it on this card: the gathers.  Each link reads lo and hi once
 // and writes lo once (12 bytes, streamed), and makes one data-dependent
@@ -89,7 +90,8 @@ __device__ __forceinline__ void descend(const int32_t* __restrict__ t,
     int32_t nl[kLinks];
 #pragma unroll
     for (int j = 0; j < kLinks; ++j) {
-      const int64_t idx = l[j] < 0 ? 0 : (l[j] >= width ? width - 1 : l[j]);
+      const int64_t i = l[j] < 0 ? (int64_t)l[j] + width : (int64_t)l[j];
+      const int64_t idx = i < 0 ? 0 : (i >= width ? width - 1 : i);
       nl[j] = load_kept(t + idx, policy);
     }
 #pragma unroll

@@ -455,11 +455,21 @@ def _depth_tier(size: int, pad: int, in_schedule: bool, levels: int,
     return min(levels + 6, cap)
 
 
+def _live_links_np(lo: torch.Tensor, hi: torch.Tensor, n: int):
+    """Host copies of the live links (lo < n), in slot order: the
+    checkpointable state at a chunk boundary (runtime/snapshot.py's
+    soundness argument).  The mask runs on the links' device, so only
+    the live links cross to the host."""
+    keep = lo < n
+    return lo[keep].cpu().numpy(), hi[keep].cpu().numpy()
+
+
 def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
                         stop_live: int = 0, levels: int = 10,
                         jrounds: int = 8, first_levels: int = 4,
                         handoff_input: bool = False,
-                        handoff_sort: bool = True, watch=None):
+                        handoff_sort: bool = True, watch=None,
+                        runtime=None):
     """Run chunk rounds until convergence (or until live <= stop_live),
     compacting between chunks.
 
@@ -490,6 +500,16 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
     writes into a tensor once it was handed out: every round, compaction,
     remap, host assist and K1 launch writes only into tensors it
     allocates, so a snapshot stays what it was while a fetch reads it.
+
+    ``runtime``: an optional ``runtime.ChunkRuntime`` (the fault-tolerant
+    build's ``single`` rung passes one).  Every dispatch (the opener and
+    each chunk) then runs under its retry/backoff/watchdog policy, which
+    may halve a chunk's round count after a fault; ``runtime.cap_levels``
+    caps each chunk's depth to the memory budget; and each chunk boundary
+    hands the live links to ``runtime.boundary`` while the loop is still
+    in the original vertex space (after a remap the last such checkpoint
+    stands).  Checkpoint boundaries need settled state, so the pipeline
+    is off.  Without a runtime the loop is unchanged.
     """
     lo, hi = _i32(lo), _i32(hi)
     e = int(lo.shape[0])
@@ -514,12 +534,16 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
         return (lo, hi) if back is None else vremap_back(lo, hi, back)
 
     # jump-only opener; its stats are deliberately not read
-    lo, hi, _ = jump_chunk(lo, hi, n, first_levels)
+    if runtime is None:
+        lo, hi, _ = jump_chunk(lo, hi, n, first_levels)
+    else:
+        (lo, hi, _), _ = runtime.dispatch(
+            "chunk", lambda _j: jump_chunk(lo, hi, n, first_levels))
     rounds += 1
     # pipelined dispatch: the next chunk is enqueued before the previous
     # chunk's stats are read; compaction is one chunk late, which is sound
     # because live counts only fall and rewrites never resurrect a link
-    pipeline = _pipeline_chunks(lo.device)
+    pipeline = _pipeline_chunks(lo.device) and runtime is None
     prev = None  # (lo, hi, stats) of the chunk whose stats are unread
 
     def _consume(stats, alo, ahi, rounds_ret):
@@ -556,7 +580,15 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
             lv = min(levels + 6, cap)
             if plate.assisted:
                 j = 1
-        nlo, nhi, stats = fixpoint_chunk(lo, hi, n_cur, lv, j)
+        if runtime is None:
+            nlo, nhi, stats = fixpoint_chunk(lo, hi, n_cur, lv, j)
+        else:
+            # the memory budget caps the depth (the jump tables are the
+            # loop's largest allocation); a retry may halve j, and the
+            # rounds booked are the ones that ran
+            lv = runtime.cap_levels(lv, n_cur)
+            (nlo, nhi, stats), j = runtime.dispatch(
+                "chunk", lambda jj: fixpoint_chunk(lo, hi, n_cur, lv, jj), j)
         rounds += j
         chunk_i += 1
         use_pipe = pipeline and back is None and not plate.on \
@@ -579,6 +611,10 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
                 lo, advanced = plate.assist(lo, hi, n_cur)
                 if advanced:
                     rounds += 1
+            if runtime is not None and back is None:
+                # a chunk boundary in the original vertex space: the live
+                # multiset is the checkpointable state
+                runtime.boundary(rounds, lambda: _live_links_np(lo, hi, n))
         else:
             if prev is not None:
                 plo, phi, pstats = prev

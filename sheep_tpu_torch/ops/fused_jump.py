@@ -158,10 +158,12 @@ def jump_group_cuda(tables: torch.Tensor, lo: torch.Tensor,
 def jump_group_plain(tables: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor) -> torch.Tensor:
     """K1's function in plain torch: the same descent, one gather and one
-    select per table, the gather index clamped into the table as K1's
-    and jnp's gathers clamp it."""
+    select per table, the gather index taken as K1 and jnp take it: a
+    negative lo counts from the end, then it is clamped into the table."""
     for table in tables:
-        nlo = torch.index_select(table, 0, lo.clamp(0, table.numel() - 1))
+        width = table.numel()
+        idx = torch.where(lo < 0, lo + width, lo).clamp(0, width - 1)
+        nlo = torch.index_select(table, 0, idx)
         lo = torch.where(nlo < hi, nlo, lo)
     return lo
 

@@ -1,9 +1,12 @@
 """The port on the card: kernels K1, P1 and P2 against their plain
 versions (K1 also in forced table groupings; K1, P1 and P2 on views that
-are not 16-byte aligned and on ragged lengths; P2 also with lo outside
-the table), and the CUDA builds (the hybrid on the streamed, serial and
-speculative arms, the last also forced to hand off the snapshot its side
-stream fetched) against the port's host oracle.
+are not 16-byte aligned and on ragged lengths; K1 and P2 also with lo
+below 0 and past the table), the CUDA builds (the hybrid on the
+streamed, serial and speculative arms, the last also forced to hand off
+the snapshot its side stream fetched) against the port's host oracle,
+and the fault-tolerant build on the card (K1 on its single rung, a kill
+and resume, a real CUDA out-of-memory error and a watchdog on a held
+dispatch, each degrading to the host rung, and the watchdog's stream).
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 CUDA kernels with no CPU or interpret mode).  This file imports no jax, so it
@@ -340,3 +343,167 @@ def test_cuda_spec_arm_hands_off_streamed_snapshot(cuda, monkeypatch,
     np.testing.assert_array_equal(seq, want_seq)
     np.testing.assert_array_equal(forest.parent, want.parent)
     np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset1", "offset2",
+                                    "offset3", "tail1", "tail2", "tail3"])
+def test_k1_wild_lo_equals_plain(cuda, layout):
+    """K1 with lo below 0 (past the wrap too) and past the table on its
+    three load paths (int4 when aligned, scalar on views at storage
+    offsets 1-3, the E % 4 tail): exactly its plain version, which counts
+    a negative lo from the end as jnp does, then clamps."""
+    n, levels, e = 1 << 14, 3, 50_000
+    rng = np.random.default_rng(41)
+    f = np.minimum(np.arange(n + 1) + rng.integers(1, 64, n + 1), n)
+    lo = rng.integers(-n - 37, n + 37, e + 8)
+    hi = lo + rng.integers(-3, 1024, e + 8)
+    f, lo, hi = (torch.from_numpy(a.astype(np.int32)).to(cuda)
+                 for a in (f, lo, hi))
+    tables = pj.lift_tables(f, levels)
+    off = int(layout[-1]) if layout.startswith("offset") else 0
+    size = e + (int(layout[-1]) if layout.startswith("tail") else 0)
+    lo, hi = lo[off:off + size], hi[off:off + size]
+    before = pj.launches
+    got = pj.jump_group_cuda(tables, lo, hi)
+    torch.cuda.synchronize()
+    assert pj.launches == before + 1
+    assert torch.equal(got, pj.jump_group_plain(tables, lo, hi))
+    # the ROADMAP's input: f = arange(100, 200), lo = [-3] gives [197]
+    f1 = torch.arange(100, 200, dtype=torch.int32, device=cuda)[None, :]
+    one = torch.tensor([-3], dtype=torch.int32, device=cuda)
+    big = torch.tensor([1000], dtype=torch.int32, device=cuda)
+    assert pj.jump_group_cuda(f1, one, big).tolist() == [197]
+
+
+def _resilient_graph():
+    tail, head = rmat_edges(14, 8 << 14, seed=5)
+    want_seq = degree_sequence(tail, head)
+    return tail, head, want_seq, build_forest(tail, head, want_seq)
+
+
+def _resilient(tmp_path, **kw):
+    from sheep_tpu_torch.runtime import RuntimeConfig, build_graph_resilient
+
+    tail, head, want_seq, want = _resilient_graph()
+    pj.load_library()  # built before any watchdog starts timing
+    cfg = RuntimeConfig(checkpoint_dir=str(tmp_path), backoff_base_s=0.0,
+                        ladder=("single", "host"), **kw)
+    pj.launches = 0
+    seq, forest = build_graph_resilient(tail, head, config=cfg)  # the card
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(seq, want_seq)
+    np.testing.assert_array_equal(forest.parent, want.parent)
+    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+    return cfg, pj.launches
+
+
+def test_cuda_resilient_build_equals_oracle(cuda, tmp_path):
+    """The fault-tolerant build on the card: the single rung's chunks
+    descend through K1, every boundary checkpoints, nothing degrades, and
+    the kill at boundary 1 resumes to the same forest."""
+    from sheep_tpu_torch.runtime import (BuildKilled, FaultPlan, clear_plan,
+                                         install_plan)
+
+    cfg, launches = _resilient(tmp_path)
+    kinds = [e[0] for e in cfg.events]
+    assert launches > 0
+    assert kinds.count("checkpoint") >= 2 and "degrade" not in kinds
+    install_plan(FaultPlan(site="boundary", at=1, kind="kill"))
+    try:
+        with pytest.raises(BuildKilled):
+            _resilient(tmp_path)
+    finally:
+        clear_plan()
+    cfg, launches = _resilient(tmp_path, resume=True)
+    kinds = [e[0] for e in cfg.events]
+    assert "resume" in kinds and "degrade" not in kinds, cfg.events
+    assert launches > 0  # the resumed chunks ran on the card, through K1
+
+
+def test_cuda_resilient_k1_launch_failure_fails_the_build(cuda, tmp_path,
+                                                         monkeypatch):
+    """K1 failing to launch is not retried and does not degrade: the build
+    raises, and the host rung never finishes the card's work."""
+    from sheep_tpu_torch.runtime import RuntimeConfig, build_graph_resilient
+
+    real = pj.load_library()
+
+    class FailingK1:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def sheep_fused_jump(self, *args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(pj, "load_library", lambda: FailingK1())
+    tail, head, _, _ = _resilient_graph()
+    cfg = RuntimeConfig(checkpoint_dir=str(tmp_path), backoff_base_s=0.0,
+                        ladder=("single", "host"))
+    with pytest.raises(RuntimeError, match="fused_jump kernel launch failed"):
+        build_graph_resilient(tail, head, config=cfg)
+    kinds = [e[0] for e in cfg.events]
+    assert "retry" not in kinds and "degrade" not in kinds, cfg.events
+
+
+def test_cuda_resilient_real_oom_degrades(cuda, tmp_path, monkeypatch):
+    """A chunk dispatch that raises a real torch.cuda.OutOfMemoryError (an
+    impossible allocation on the card) is classified retryable, exhausts
+    its budget and degrades to the host rung, equal to the oracle."""
+    from sheep_tpu_torch.ops import forest as pf
+    from sheep_tpu_torch.runtime import is_retryable
+
+    def oom_chunk(lo, hi, n, levels, jrounds):
+        torch.empty(1 << 50, dtype=torch.uint8, device=lo.device)
+        raise AssertionError("an allocation of 1 PiB succeeded")
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+        oom_chunk(torch.zeros(1, device=cuda), None, 0, 0, 0)
+    assert is_retryable(info.value)
+    monkeypatch.setattr(pf, "fixpoint_chunk", oom_chunk)
+    cfg, _ = _resilient(tmp_path, max_retries=1)
+    assert [e[0] for e in cfg.events].count("retry") == 1
+    degrades = [e for e in cfg.events if e[0] == "degrade"]
+    assert len(degrades) == 1 and "OutOfMemoryError" in degrades[0][3]
+
+
+def test_cuda_resilient_watchdog_on_a_held_dispatch(cuda, tmp_path,
+                                                    monkeypatch):
+    """A chunk dispatch held on the card (torch.cuda._sleep, about 2 s)
+    under a 0.3 s watchdog: DeadlineExceeded on queued CUDA work
+    (DeviceHung), which gives the rung up at once, and the host rung
+    finishes, equal to the oracle."""
+    from sheep_tpu_torch.ops import forest as pf
+
+    real = pf.fixpoint_chunk
+
+    def held_chunk(lo, hi, n, levels, jrounds):
+        torch.cuda._sleep(4_000_000_000)
+        return real(lo, hi, n, levels, jrounds)
+
+    monkeypatch.setattr(pf, "fixpoint_chunk", held_chunk)
+    cfg, _ = _resilient(tmp_path, watchdog_s=0.3)
+    degrades = [e for e in cfg.events if e[0] == "degrade"]
+    assert len(degrades) == 1 and "DeviceHung" in degrades[0][3], cfg.events
+
+
+def test_cuda_watchdog_enqueues_on_the_callers_stream(cuda):
+    """The watchdog's helper thread runs the dispatch on the caller's
+    current stream (torch's current stream is per thread), and the
+    attempt's outputs are ready when it returns."""
+    from sheep_tpu_torch.runtime.retry import call_with_watchdog
+
+    side = torch.cuda.Stream()
+    seen = []
+
+    def dispatch(j):
+        seen.append(torch.cuda.current_stream())
+        x = torch.arange(1 << 20, device="cuda", dtype=torch.int32)
+        return x + j
+
+    with torch.cuda.stream(side):
+        out = call_with_watchdog(dispatch, 3, 30.0)
+        assert seen == [side]
+        assert torch.cuda.current_stream() == side
+    assert int(out[5]) == 8
+    out = call_with_watchdog(dispatch, 1, None)  # no watchdog: this thread
+    assert seen[-1] == torch.cuda.current_stream() and int(out[0]) == 1

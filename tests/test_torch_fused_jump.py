@@ -271,3 +271,55 @@ def test_only_sorted_rounds_ask_for_one_pass(monkeypatch):
     keep = lo != hi
     pf.reduce_links_hosted(lo[keep], hi[keep], n)
     assert len(seen) >= 2 and seen[0] is False and all(seen[1:])
+
+
+def _wild(n, seed, off=0, extra=0, levels=3):
+    """K1's tables over a seeded f, and lo drawn below 0 (down to -n - 37,
+    so past the wrap too) and at or past the width, as views at storage
+    offset ``off`` of longer buffers."""
+    rng = np.random.default_rng(seed)
+    f = np.minimum(np.arange(n + 1) + rng.integers(1, 64, n + 1), n)
+    size = n + extra
+    lo = rng.integers(-n - 37, n + 37, size + off)
+    hi = lo + rng.integers(-3, 1024, size + off)
+    lo_t = _t(lo)[off:off + size]
+    hi_t = _t(hi)[off:off + size]
+    return pj.lift_tables(_t(f), levels), lo_t, hi_t
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("log_n", [8, 11])
+def test_jump_group_plain_offset_views_and_wild_lo(log_n, off, levels):
+    """K1's plain version on views at storage offsets 0-3 (the layouts
+    that take the kernel's scalar path; extra = 3 gives an E % 4 tail)
+    with lo below 0 and past the table: equal to the reference's
+    jump_group in interpret mode, which counts a negative index from the
+    end and clamps the rest, arrays whole."""
+    n = 1 << log_n
+    tables, lo, hi = _wild(n, seed=log_n + off + 10 * levels, off=off,
+                           extra=3, levels=levels)
+    assert lo.storage_offset() == off
+    assert (lo < -n).any() and (lo < 0).any() and (lo > n).any()
+    got = pj.jump_group_plain(tables, lo, hi).numpy()
+    want = ref_pj.jump_group(tuple(jnp.asarray(t.numpy()) for t in tables),
+                             jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()),
+                             interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    # and through the dispatcher on the CPU: the plain version, no launch
+    before = pj.launches
+    np.testing.assert_array_equal(pj.jump_group(tables, lo, hi).numpy(), got)
+    assert pj.launches == before
+
+
+def test_jump_group_plain_counts_a_negative_lo_from_the_end():
+    """The ROADMAP's input: f = arange(100, 200), lo = [-3], hi = [1000]
+    gives [197] in the reference, and so in the port."""
+    f = torch.arange(100, 200, dtype=torch.int32)
+    lo = torch.tensor([-3], dtype=torch.int32)
+    hi = torch.tensor([1000], dtype=torch.int32)
+    got = pj.jump_group_plain(f[None, :], lo, hi)
+    want = ref_pj.jump_group((jnp.asarray(f.numpy()),),
+                             jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()),
+                             interpret=True)
+    assert got.tolist() == [197] == np.asarray(want).tolist()

@@ -14,6 +14,19 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "sheep_tpu_torch")
 FORBIDDEN = ("jax", "sheep_tpu")
+#: the fault-tolerant build and the host layers it stands on
+NEW_MODULES = (
+    "sheep_tpu_torch.core.validate", "sheep_tpu_torch.integrity",
+    "sheep_tpu_torch.integrity.errors", "sheep_tpu_torch.integrity.sidecar",
+    "sheep_tpu_torch.io.atomic", "sheep_tpu_torch.io.faultfs",
+    "sheep_tpu_torch.io.prefetch", "sheep_tpu_torch.obs",
+    "sheep_tpu_torch.obs.trace", "sheep_tpu_torch.plan",
+    "sheep_tpu_torch.plan.model", "sheep_tpu_torch.plan.priors",
+    "sheep_tpu_torch.resources", "sheep_tpu_torch.resources.errors",
+    "sheep_tpu_torch.resources.gc", "sheep_tpu_torch.resources.governor",
+    "sheep_tpu_torch.runtime", "sheep_tpu_torch.runtime.driver",
+    "sheep_tpu_torch.runtime.faults", "sheep_tpu_torch.runtime.retry",
+    "sheep_tpu_torch.runtime.snapshot", "sheep_tpu_torch.utils.envinfo")
 
 
 def _modules():
@@ -38,7 +51,7 @@ def test_importing_every_module_loads_no_jax_and_no_sheep_tpu():
     mods = _modules()
     for mod in ("sheep_tpu_torch.ops.build", "sheep_tpu_torch.ops.probe",
                 "sheep_tpu_torch.ops.stream",
-                "sheep_tpu_torch.scripts.kernel_probe"):
+                "sheep_tpu_torch.scripts.kernel_probe") + NEW_MODULES:
         assert mod in mods
     prog = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -55,7 +68,12 @@ def test_importing_every_module_loads_no_jax_and_no_sheep_tpu():
     assert out.stdout.strip() == "[]", out.stdout
 
 
-@pytest.mark.parametrize("path", ["sheep_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("path", [
+    "sheep_tpu_torch", "chip_smoke.py",
+    # the fault-tolerant build's subpackages, each on its own
+    "sheep_tpu_torch/runtime", "sheep_tpu_torch/integrity",
+    "sheep_tpu_torch/resources", "sheep_tpu_torch/plan",
+    "sheep_tpu_torch/obs", "sheep_tpu_torch/io"])
 def test_source_imports_no_jax_and_no_sheep_tpu(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -110,6 +128,18 @@ def test_streaming_entry_points_default_to_cuda():
                      (stream.streaming_degree_histogram, (3,))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(iter(blocks), *args)
+
+
+def test_resilient_build_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    from sheep_tpu_torch.runtime import build_graph_resilient
+
+    tail = np.array([0, 1, 2], np.uint32)
+    head = np.array([1, 2, 0], np.uint32)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_graph_resilient(tail, head, device=device)
 
 
 def test_probe_tool_defaults_to_cuda(capsys):
