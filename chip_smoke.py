@@ -8,7 +8,8 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build K1 (csrc/fused_jump.cu), P1 and P2 (csrc/probe_kernels.cu), both
-   with nvcc, and the host fold (csrc/host_fold.cpp, g++), in parallel;
+   with nvcc, and the native host runtime (csrc/sheep_native.cpp, g++
+   with OpenMP), in parallel;
 3. K1 against its plain torch version on the card: the six
    tests/test_pallas_jump.py cases, a ragged E, groupings forced to
    g = 1, 2 and L tables a launch (a small ``l2_bytes`` to the planner)
@@ -42,6 +43,14 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    not, groups) and device time of every K1 call and keeps the first
    chunk round's input, on which K1's three orders are then timed against
    the plain version as in phase 3;
+6b. the native host runtime (``native`` line) on the real-size graph:
+   the numpy degree order against the fused native sort, the blocked
+   fused build against edges_to_links + the plain fold, the links fold on
+   1 thread and on the host's granted cores (which it must use), and the
+   hybrid with the numpy order forced into its prefetch and with the
+   native one, each equal to the oracle, with prefetch_seq_s,
+   prefetch_pst_s, pst_wait_s and fold_s; the host's cores and the
+   OpenMP runtimes mapped into the process;
 7. the speculative arm forced, through its seams, to hand off the
    snapshot its side stream fetched: spec_complete (the stream stops the
    loop) and spec_wait, each 6-byte packed and in int32 pairs, on
@@ -55,6 +64,16 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    TREEFAQS line), build_graph_streaming on rmat_edges(20, 2^23, seed=1)
    in 4 blocks, and build_graph_streaming_hosted on the real-size graph
    in blocks of 2^24 records, each equal to the oracle;
+9b. the partitioner (``partition`` line): hep-th built by
+   build_graph_hybrid on the card (K1 counted), partitioned at 2-9 parts
+   with ECV(down) equal to data/hepth-ecv-baseline.json and the golden
+   2-part report (edges cut 2811, Vcom 2061, ECV(hash) 1311, ECV(down)
+   521, ECV(up) 1539, sizes 3409/4201); four partial hep-th forests
+   built on the card over one sequence (K1 counted), merged by
+   merge_forests to the whole tree; the native forward pass against the
+   python one on rmat_edges(20, 2^23, seed=1) at 2, 16 and 64 parts; the
+   real-size tree at 2, 16 and 64 parts, the in-memory evaluator equal to
+   the streamed one, the partition and both evaluators timed;
 10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
     single -> host -> stream -> spill, checkpoints in a temporary
     directory) on the real-size graph: equal to the oracle, no degrade,
@@ -79,7 +98,7 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
 Every launch count is set to 0 just before each driven path and read just
 after: each build (the streaming builds and the unfaulted resilient
 builds too) must have launched K1, and the probe tool P1 and P2.
-Imports nothing of JAX or sheep_tpu.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -956,6 +975,254 @@ def device_phase(device: torch.device, data=None, log_n: int = 20,
     return rec
 
 
+
+def omp_runtimes() -> list:
+    """The OpenMP runtimes mapped into this process (/proc/self/maps):
+    torch's wheel ships its own libgomp beside the one g++ links."""
+    found = set()
+    with open("/proc/self/maps") as f:
+        for line in f:
+            path = line.split()[-1] if len(line.split()) >= 6 else ""
+            if re.search(r"lib(g|i)?omp[^/]*\.so", os.path.basename(path)):
+                found.add(path)
+    return sorted(found)
+
+
+def numpy_degree_sequence(tail, head, n=None):
+    """The port's degree order before the native sort: a numpy
+    histogram, then a stable argsort of the degrees over the active
+    vids (core/sequence.py as it stood before the native runtime)."""
+    if n is None:
+        n = int(max(tail.max(), head.max())) + 1
+    deg = np.bincount(tail, minlength=n) + np.bincount(head, minlength=n)
+    vids = np.nonzero(deg)[0]
+    return vids[np.argsort(deg[vids], kind="stable")].astype(np.uint32)
+
+
+@contextlib.contextmanager
+def attr_set(obj, name: str, value):
+    """Replace ``obj.name`` inside the block (None keeps it)."""
+    old = getattr(obj, name)
+    if value is not None:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def timed_call(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def native_phase(device: torch.device, data):
+    """The native host runtime on the real-size graph: the numpy degree
+    order against the fused native sort; the blocked fused build against
+    edges_to_links + the plain fold; the links fold on 1 thread and on
+    the host's granted cores; then the hybrid with the numpy order forced
+    into its prefetch and with the native one.  Every pair equal, each
+    side timed (host seconds)."""
+    from sheep_tpu_torch import native
+    from sheep_tpu_torch.core import sequence as seqmod
+    from sheep_tpu_torch.ops.build import build_graph_hybrid
+
+    tail, head, want_seq, want = data
+    cores = len(os.sched_getaffinity(0))
+    rec = {"records": len(tail), "host_cores": cores,
+           "omp_compiled": native.omp_compiled(),
+           "omp_max_threads": native.omp_max_threads(),
+           "omp_runtimes": omp_runtimes()}
+    n = int(max(tail.max(), head.max())) + 1
+    want_pair = (want.parent, want.pst_weight)
+
+    def equal(got, what):
+        if not all(np.array_equal(a, b) for a, b in zip(got, want_pair)):
+            raise AssertionError(f"native: {what} differs from the oracle")
+
+    with env_set({"SHEEP_NATIVE_THREADS": None,
+                  "SHEEP_NATIVE_BLOCKED": None}):
+        seq_np, rec["seq_numpy_s"] = timed_call(
+            lambda: numpy_degree_sequence(tail, head, n))
+        seq_nat, rec["seq_native_s"] = timed_call(
+            lambda: native.degree_sequence_from_edges(tail, head, n))
+        if not (np.array_equal(seq_np, want_seq)
+                and np.array_equal(seq_nat, want_seq)):
+            raise AssertionError("native: the degree orders differ")
+        del seq_np, seq_nat
+        pos = seqmod.sequence_positions(want_seq, n - 1)
+        m = len(want_seq)
+        got, rec["forest_blocked_s"] = timed_call(
+            lambda: native.build_forest_edges(tail, head, pos, m))
+        equal(got, "the blocked fused build")
+        with env_set({"SHEEP_NATIVE_BLOCKED": "0"}):
+            (lo, hi), rec["edges_to_links_s"] = timed_call(
+                lambda: native.edges_to_links(tail, head, pos))
+            got, rec["fold_plain_s"] = timed_call(
+                lambda: native.build_forest_links(lo, hi, m))
+            equal(got, "edges_to_links + the plain fold")
+        rec["links"] = len(lo)
+        got, rec["fold_1_thread_s"] = timed_call(
+            lambda: native.build_forest_links(lo, hi, m))
+        equal(got, "the fold on 1 thread")
+        rec["fold_1_thread_used"] = native.last_thread_stats()[0]
+    with env_set({"SHEEP_NATIVE_THREADS": str(cores)}):
+        got, rec["fold_threaded_s"] = timed_call(
+            lambda: native.build_forest_links(lo, hi, m))
+        equal(got, f"the fold on {cores} threads")
+        used, busy = native.last_thread_stats()
+        rec["fold_threaded_used"] = used
+        rec["fold_thread_busy_s"] = busy
+        got, rec["forest_blocked_threaded_s"] = timed_call(
+            lambda: native.build_forest_edges(tail, head, pos, m))
+        equal(got, f"the blocked fused build on {cores} threads")
+    del lo, hi, pos, got
+    if native.omp_compiled() and cores > 1 and used != cores:
+        raise AssertionError(f"native: the threaded fold ran on {used} "
+                             f"threads, not the host's {cores}")
+    if rec["fold_1_thread_used"] != 1:
+        raise AssertionError("native: the unthreaded fold used threads")
+    keys = ("prefetch_s", "prefetch_seq_s", "prefetch_pst_s", "pst_wait_s",
+            "fold_s", "loop_s", "stream_mode")
+    for arm, order in (("numpy_order", numpy_degree_sequence),
+                       ("native_order", None)):
+        perf: dict = {}
+        with attr_set(seqmod, "degree_sequence", order):
+            # host_edges as the card's default sets it: the prefetch
+            # recomputes seq and pst from the host records
+            (seq, forest), wall, launches = counted_build(
+                lambda: build_graph_hybrid(tail, head, device=device,
+                                           host_edges=(tail, head),
+                                           perf=perf),
+                f"native: hybrid ({arm})")
+        if not forest_equal(seq, forest, want_seq, want):
+            raise AssertionError(f"native: hybrid ({arm}) differs from the "
+                                 f"oracle")
+        if "prefetch_seq_s" not in perf:
+            raise AssertionError(f"native: hybrid ({arm}) recorded no "
+                                 f"prefetch split: {perf}")
+        rec[arm] = {"wall_s": wall, "k1_launches": launches,
+                    **{k: perf.get(k) for k in keys}}
+    log("native " + json.dumps(rec))
+    return rec
+
+
+#: the 2-part hep-th report of the reference's published run
+HEP_BIPARTITION = {"edges_cut": 2811, "vcom_vol": 2061, "ecv_hash": 1311,
+                   "ecv_down": 521, "ecv_up": 1539}
+
+
+def partition_phase(device: torch.device, real, small,
+                    real_parts=(2, 16, 64), block: int = 1 << 24):
+    """Partitions of trees built on the card: hep-th by the hybrid
+    (K1 counted) at 2-9 parts against data/hepth-ecv-baseline.json and
+    the golden 2-part report; four partial hep-th forests built on the
+    card over one sequence, merged to the whole tree; the native forward
+    pass against the python one on ``small``; the real-size tree at
+    ``real_parts`` parts, the in-memory evaluator against the streamed
+    one, each timed."""
+    from sheep_tpu_torch.core import (build_forest, degree_sequence,
+                                      merge_forests, sequence_positions)
+    from sheep_tpu_torch.io import load_edges, read_dat
+    from sheep_tpu_torch.ops.build import build_graph_hybrid
+    from sheep_tpu_torch.partition import (Partition, evaluate_partition,
+                                           partition_forest)
+    from sheep_tpu_torch.partition.evaluate import \
+        evaluate_partition_streamed
+
+    hep = os.path.join(ROOT, "data", "hep-th.dat")
+    with open(os.path.join(ROOT, "data", "hepth-ecv-baseline.json")) as f:
+        baseline = {int(k): v for k, v in json.load(f)["ecv_down"].items()}
+    el = load_edges(hep)
+    want_seq = degree_sequence(el.tail, el.head)
+    want = build_forest(el.tail, el.head, want_seq)
+    (seq, forest), wall, launches = counted_build(
+        lambda: build_graph_hybrid(el.tail, el.head, device=device),
+        "partition: hep-th hybrid")
+    if not forest_equal(seq, forest, want_seq, want):
+        raise AssertionError("partition: hep-th hybrid differs from the "
+                             "oracle")
+    rec = {"hep_k1_launches": launches, "hep_build_s": wall}
+    ecv = {}
+    for p in sorted(baseline):
+        part = Partition.from_forest(seq, forest, p, max_vid=el.max_vid)
+        rep = evaluate_partition(part.parts, el.tail, el.head, seq, p,
+                                 max_vid=el.max_vid,
+                                 file_edges=el.num_edges)
+        ecv[p] = rep.ecv_down
+        if p == 2:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                part.print()
+                rep.print()
+            log("partition hep-th 2 parts: "
+                + buf.getvalue().strip().replace("\n", " / "))
+            sizes = [int((part.parts == 0).sum()),
+                     int((part.parts == 1).sum())]
+            got = {k: getattr(rep, k) for k in HEP_BIPARTITION}
+            if got != HEP_BIPARTITION or sizes != [3409, 4201]:
+                raise AssertionError(f"partition: hep-th 2-part report "
+                                     f"{got}, sizes {sizes}")
+    rec["hep_ecv_down"] = ecv
+    if ecv != baseline:
+        raise AssertionError(f"partition: hep-th ECV(down) {ecv} != the "
+                             f"baseline {baseline}")
+    partials, rec["partial_k1_launches"] = [], []
+    for k in range(1, 5):
+        piece = read_dat(hep, k, 4)
+        # handoff factor 0: the loop reduces each slice to convergence
+        (pseq, pforest), _, plaunch = counted_build(
+            lambda: build_graph_hybrid(piece.tail, piece.head,
+                                       num_vertices=el.max_vid + 1,
+                                       seq=seq, handoff_factor=0,
+                                       device=device),
+            f"partition: hep-th slice {k}/4")
+        if not np.array_equal(pseq, seq):
+            raise AssertionError("partition: a slice changed the sequence")
+        partials.append(pforest)
+        rec["partial_k1_launches"].append(plaunch)
+    merged = merge_forests(*partials)
+    if not forest_equal(seq, merged, want_seq, want):
+        raise AssertionError("partition: the merged hep-th slices differ "
+                             "from the whole tree")
+    stail, shead, sseq, sforest = small
+    rec["forward_small"] = []
+    for p in real_parts:
+        nat, nat_s = timed_call(lambda: partition_forest(sforest, p))
+        py, py_s = timed_call(
+            lambda: partition_forest(sforest, p, impl="python"))
+        if not np.array_equal(nat, py):
+            raise AssertionError(f"partition: native and python forward "
+                                 f"passes differ at {p} parts")
+        rec["forward_small"].append({"parts": p, "native_s": nat_s,
+                                     "python_s": py_s})
+    tail, head, rseq, rforest = real
+    mv = int(max(tail.max(), head.max()))
+    pos = sequence_positions(rseq, mv)
+    rec["real"] = []
+    for p in real_parts:
+        part, part_s = timed_call(
+            lambda: Partition.from_forest(rseq, rforest, p, max_vid=mv))
+        dense, dense_s = timed_call(
+            lambda: evaluate_partition(part.parts, tail, head, rseq, p,
+                                       max_vid=mv, file_edges=len(tail)))
+        stream, stream_s = timed_call(
+            lambda: evaluate_partition_streamed(
+                part.parts, lambda: _blocks(tail, head, block), pos, p,
+                len(tail)))
+        if vars(dense) != vars(stream):
+            raise AssertionError(f"partition: the evaluators differ at {p} "
+                                 f"parts: {vars(dense)} vs {vars(stream)}")
+        rec["real"].append({"parts": p, "partition_s": part_s,
+                            "evaluate_s": dense_s,
+                            "evaluate_streamed_s": stream_s,
+                            "created": part.max_part + 1,
+                            "ecv_down": dense.ecv_down,
+                            "edges_cut": dense.edges_cut})
+    log("partition " + json.dumps(rec))
+    return rec
+
 class SaveRecorder:
     """Times every checkpoint save of the fault-tolerant build and reads
     the snapshot's size on disk, with no knob in the package: it wraps
@@ -1340,7 +1607,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} ({kind}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    log(f"build: K1, P1/P2 and host fold in {build_kernels():.2f}s")
+    log(f"build: K1, P1/P2 and the native host runtime in "
+        f"{build_kernels():.2f}s")
     k1 = k1_phase(device)
     probes, _, probe_counts = probe_phase(device)
     golden_phase(device)
@@ -1353,10 +1621,12 @@ def main() -> int:
                       sorted_links=kept["sorted_links"]))
     del kept
     recorder.kept = None
+    native_phase(device, real_data)
     spec_outcomes_phase(device)
     fetch_phase(device)
     small_data = real_inputs(20, 23, 1)
     streaming_phase(device, real_data, small_data)
+    partition_phase(device, real_data, small_data)
     # the default tail's last run (the runs in between are other arms)
     main_run = next(r for r in reversed(real) if r["arm"] == "stream")
     resilient_real(device, real_data, main_run["wall_s"])

@@ -5,14 +5,20 @@ counterpart is easy to find, but imports nothing of it (and never
 ``jax``): what it needs from the host-only layers it keeps as its own copy.
 
 Layout:
-  core/       host oracle: Forest, build_forest, sequences, tree facts,
-              the streamed handoff's window bounds and resumable fold,
-              the fast forest validator (core/validate.py)
-  native/     ctypes binding of the sequential union-find fold,
-              monolithic and resumable (csrc/host_fold.cpp)
-  io/         edge-list readers (.dat XS1 binary, .net SNAP text), the
-              crash-safe writer with its fault hooks, the block
-              prefetcher
+  core/       host oracle: Forest, build_forest (+ streaming, merge,
+              pre weights), sequences, tree facts, the streamed
+              handoff's window bounds and resumable fold, the fast
+              forest validator (core/validate.py)
+  native/     ctypes binding of the native host runtime
+              (csrc/sheep_native.cpp): the union-find fold (plain,
+              cache-blocked, OpenMP-threaded; monolithic, resumable,
+              fused from edges), the fused degree sort, the forward
+              tree partition, FENNEL, the evaluator's block
+  io/         edge-list readers and writers (.dat XS1 binary, .net SNAP
+              text), .tre and .seq files, the crash-safe writer with
+              its fault hooks, the block prefetcher
+  partition/  tree partitioners (forward FFD et al.), Partition and its
+              writers, the evaluators (in memory and streamed), FENNEL
   ops/        device ops on torch tensors: sort, the reduce loop, the
               hybrid build with its streamed windowed handoff, K1's
               wrapper (ops/fused_jump.py, csrc/fused_jump.cu) and the
@@ -30,7 +36,7 @@ Layout:
 
 The host layers are copies of the reference's modules; their notes still
 name reference modules the port has not ported yet (serve/, supervisor/,
-the CLI, ops/extmem.py), whose queue is in ROADMAP.md.
+the CLI, ops/extmem.py, core/jxn.py), whose queue is in ROADMAP.md.
 
 Entry points (``ops.build.build_graph_hybrid``, ``build_graph_device``,
 ``runtime.build_graph_resilient``, the probe tool) run on the CUDA card
@@ -42,6 +48,8 @@ from __future__ import annotations
 import torch
 
 INVALID_JNID = 0xFFFFFFFF
+INVALID_VID = 0xFFFFFFFF
+INVALID_PART = -1
 
 
 def resolve_device(device=None) -> torch.device:

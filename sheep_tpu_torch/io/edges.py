@@ -6,7 +6,10 @@
   lines starting with '#' are skipped.
 
 Trust mode reads no integrity sidecar: a torn trailing ``.dat`` record is
-dropped, and a malformed ``.net`` token raises ValueError.  Partial loads
+dropped, and a malformed ``.net`` token raises ValueError.  The writers
+(:func:`write_dat`, :func:`write_net`, :func:`write_edges`) are
+crash-safe and seal a ``.sum`` sidecar, byte for byte as the
+reference's.  Partial loads
 (part k of num_parts, 1-indexed) are the contiguous record ranges
 [floor((k-1)*E/n), floor(k*E/n)).  :func:`iter_dat_blocks` streams a
 ``.dat`` file block by block, the source of the out-of-core builds
@@ -20,6 +23,8 @@ import warnings
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..integrity.sidecar import checksummed_write
 
 _XS1_DTYPE = np.dtype(
     [("tail", "<u4"), ("head", "<u4"), ("weight", "<f4")]
@@ -50,6 +55,14 @@ class EdgeList:
         if self.num_edges == 0:
             return 0
         return int(max(self.tail.max(), self.head.max()))
+
+    def degrees(self, num_vertices: int | None = None) -> np.ndarray:
+        """Per-vertex degree of the undirected-doubled graph: each record
+        adds 1 to both endpoints, a self-loop 2 to its vertex."""
+        n = num_vertices if num_vertices is not None else self.max_vid + 1
+        deg = np.bincount(self.tail, minlength=n)
+        deg += np.bincount(self.head, minlength=n)
+        return deg.astype(np.int64)
 
 
 def partial_range(num_records: int, part: int,
@@ -180,3 +193,30 @@ def load_edges(path: str, part: int = 0, num_parts: int = 0,
     if dedup or os.environ.get("SHEEP_DDUP_GRAPH", "") == "1":
         el = dedup_edges(el)
     return el
+
+
+def write_dat(path: str, tail: np.ndarray, head: np.ndarray) -> None:
+    """XS1 records (weight 1.0), written atomically with a sidecar whose
+    size is preflighted against the disk."""
+    rec = np.empty(len(tail), dtype=_XS1_DTYPE)
+    rec["tail"] = tail
+    rec["head"] = head
+    rec["weight"] = 1.0
+    with checksummed_write(path, "wb", expect_bytes=rec.nbytes) as f:
+        f.write(rec.tobytes())
+
+
+def write_net(path: str, tail: np.ndarray, head: np.ndarray) -> None:
+    """SNAP text, ``tail head`` per line; the preflight prices the uint32
+    ceiling (two 10-digit vids, a separator and a newline)."""
+    with checksummed_write(path, "w", expect_bytes=22 * len(tail)) as f:
+        for x, y in zip(tail.tolist(), head.tolist()):
+            f.write(f"{x} {y}\n")
+
+
+def write_edges(path: str, tail: np.ndarray, head: np.ndarray) -> None:
+    """Suffix-dispatching writer (``.dat`` binary, else SNAP text)."""
+    if path.endswith(".dat"):
+        write_dat(path, tail, head)
+    else:
+        write_net(path, tail, head)

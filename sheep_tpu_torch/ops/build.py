@@ -107,16 +107,20 @@ def build_graph_device(tail, head, num_vertices: int | None = None,
 
 
 def _host_seq_pst(tail_np: np.ndarray, head_np: np.ndarray, n: int,
-                  seq: np.ndarray | None = None):
+                  seq: np.ndarray | None = None, perf: dict | None = None):
     """Host-side (seq, pst) identical to prepare_links' outputs: same
     order (degree asc, vid asc) and same pst (one count per non-self-loop
     record at its earlier-in-sequence endpoint, absent heads included).
-    A given ``seq`` replaces the degree sort.  Block-wise gathers keep the
-    peak at a few int arrays of one block."""
+    A given ``seq`` replaces the degree sort (the native fused sort of
+    ``core.sequence``).  Block-wise gathers keep the peak at a few int
+    arrays of one block.  ``perf`` receives prefetch_seq_s (the order)
+    and prefetch_pst_s (the numpy pst pass)."""
     from ..core.sequence import degree_sequence, sequence_positions
 
+    t0 = time.perf_counter()
     seq_h = degree_sequence(tail_np, head_np, n) if seq is None \
         else np.asarray(seq, dtype=np.uint32)
+    t1 = time.perf_counter()
     pos = sequence_positions(seq_h, n - 1)
     pst = np.zeros(n, np.int64)
     block = 1 << 24
@@ -128,6 +132,9 @@ def _host_seq_pst(tail_np: np.ndarray, head_np: np.ndarray, n: int,
         lo = np.minimum(pt, ph)
         live = (pt != ph) & (lo < n)
         pst += np.bincount(lo[live], minlength=n)[:n]
+    if perf is not None:
+        perf["prefetch_seq_s"] = round(t1 - t0, 4)
+        perf["prefetch_pst_s"] = round(time.perf_counter() - t1, 4)
     return seq_h, pst.astype(np.uint32)
 
 
@@ -150,7 +157,8 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     toward pst, never the tree).  ``perf``: a dict that receives loop_s,
     rounds, live, fetch_tail_s, handoff_links, packed_handoff, fold_s,
     pst_wait_s, prefetch_s (the seq/pst prefetch thread's own time, when
-    it runs), fetch_windows and, from the streamed tail, stream_mode,
+    it runs; prefetch_seq_s and prefetch_pst_s split it when it
+    recomputes them from the host edges), fetch_windows and, from the streamed tail, stream_mode,
     window_fetch_s, window_fold_s, window_fetch_phases, overlap_s and
     overlap_frac, or, from the serial arm's speculative snapshot,
     overlap, spec_starts, spec_restarts, spec_wasted_mb,
@@ -228,7 +236,7 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
                 if host_edges is not None:
                     t_np, h_np = host_edges
                     fetched["seq"], fetched["pst"] = _host_seq_pst(
-                        t_np, h_np, n, seq=given_seq)
+                        t_np, h_np, n, seq=given_seq, perf=perf)
                     fetched["m"] = len(fetched["seq"])
                 else:
                     fetched["seq"] = _np(seq)

@@ -6,7 +6,8 @@ artifact alone: host load at measurement time, core count and the
 process's actual affinity mask (thread pins), the cgroup cpu quota (a
 container limited to 4 cpu-seconds/second reports every host core in
 nproc/affinity, and the native fold's thread plan sizes itself off the
-EFFECTIVE count), cpu model, thread-count env pins, and the CUDA card
+EFFECTIVE count), cpu model, thread-count env pins, the native
+library's OpenMP view (when it is already loaded), and the CUDA card
 (name, count) when torch has already initialised CUDA.
 
 Deliberately import-light: a capture never initialises CUDA (the card is
@@ -95,6 +96,15 @@ def env_capture(platform: str | None = None) -> dict:
                      "SHEEP_LEG_CORES")}
     if pins:
         rec["thread_env"] = pins
+    # the native library's OpenMP view, only when something else already
+    # paid for loading it (this capture never triggers a build)
+    native = sys.modules.get("sheep_tpu_torch.native")
+    if native is not None and getattr(native, "_lib", None) is not None:
+        try:
+            rec["omp_compiled"] = native.omp_compiled()
+            rec["omp_max_threads"] = native.omp_max_threads()
+        except Exception:
+            pass
     if platform is not None:
         rec["backend"] = platform
     else:

@@ -172,3 +172,154 @@ def test_convert_round_trips():
     before = ref.parent.copy()
     parent.fill_(7)
     np.testing.assert_array_equal(ref.parent, before)
+
+
+@pytest.mark.parametrize("workers", [2, 3, 4])
+def test_merge_forests_of_partial_loads_equals_whole_tree(workers):
+    """Partial forests over ``part=k, num_parts=w`` record slices of
+    hep-th, all over the whole graph's sequence, merge to the whole-graph
+    tree; the merge equals the reference's, and forests of differing
+    length refuse with IncompatibleMerge."""
+    from sheep_tpu_torch.integrity.errors import IncompatibleMerge
+
+    el = PIO.load_edges(HEP)
+    seq = PC.degree_sequence(el.tail, el.head)
+    whole = PC.build_forest(el.tail, el.head, seq)
+    parts = [PIO.read_dat(HEP, k, workers) for k in range(1, workers + 1)]
+    partials = [PC.build_forest(p.tail, p.head, seq, max_vid=el.max_vid)
+                for p in parts]
+    merged = PC.merge_forests(*partials)
+    _forest_eq(merged, whole)
+    _forest_eq(PC.merge_forests(*partials, impl="python"), whole)
+    ref = RC.merge_forests(*[RC.Forest(f.parent, f.pst_weight)
+                             for f in partials])
+    _forest_eq(merged, ref)
+    _forest_eq(PC.merge_forests(PC.merge_forests(*partials[:2]),
+                                *partials[2:]), whole)
+    with pytest.raises(IncompatibleMerge):
+        PC.merge_forests(whole, PC.Forest(whole.parent[:-1],
+                                          whole.pst_weight[:-1]))
+    with pytest.raises(IncompatibleMerge):
+        PC.merge_forests()
+
+
+@pytest.mark.parametrize("block", [1, 97, 5000])
+@pytest.mark.parametrize("subset", [False, True])
+def test_build_forest_streaming_equals_whole_build(block, subset):
+    rng = np.random.default_rng(6400 + block)
+    tail, head = random_multigraph(rng, 400, 6000)
+    seq = RC.degree_sequence(tail, head)
+    if subset:
+        seq = seq[: max(2, len(seq) * 2 // 3)]
+    mv = int(max(tail.max(), head.max())) - 3  # vids past the table too
+
+    def blocks():
+        for a in range(0, len(tail), block):
+            yield tail[a:a + block], head[a:a + block]
+
+    want = RC.build_forest(tail, head, seq, max_vid=mv, impl="python")
+    _forest_eq(PC.build_forest_streaming(blocks(), seq, max_vid=mv), want)
+    _forest_eq(RC.build_forest_streaming(blocks(), seq, max_vid=mv), want)
+    if block >= 97:
+        _forest_eq(PC.build_forest_streaming(blocks(), seq, max_vid=mv,
+                                             impl="python"), want)
+
+
+@pytest.mark.parametrize("trial", range(3))
+def test_pre_weights_and_default_sequence(trial):
+    from sheep_tpu.core.forest import pre_weights as ref_pre
+    from sheep_tpu.core.sequence import default_sequence as ref_default
+
+    rng = np.random.default_rng(6500 + trial)
+    tail, head = random_multigraph(rng, 300, 2500)
+    deg = np.bincount(tail, minlength=320) + np.bincount(head, minlength=320)
+    seq = PC.default_sequence(deg)
+    np.testing.assert_array_equal(seq, ref_default(deg))
+    assert seq.dtype == np.uint32
+    for s in (seq, PC.degree_sequence(tail, head)):
+        want = ref_pre(tail, head, s, impl="python")
+        np.testing.assert_array_equal(PC.pre_weights(tail, head, s), want)
+        np.testing.assert_array_equal(
+            PC.pre_weights(tail, head, s, impl="python"), want)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_tree_and_sequence_files_cross_packages(tmp_path, binary):
+    """A .tre or .seq file written by either package reads back in the
+    other, and both write the same bytes (sidecars included)."""
+    from sheep_tpu.io import seqfile as RSQ, trefile as RTR
+    from sheep_tpu_torch.io import seqfile as PSQ, trefile as PTR
+
+    el = PIO.load_edges(HEP)
+    seq = PC.degree_sequence(el.tail, el.head)
+    forest = PC.build_forest(el.tail, el.head, seq)
+    files = {}
+    for tag, tre_mod, seq_mod in (("p", PTR, PSQ), ("r", RTR, RSQ)):
+        tre, sq = str(tmp_path / f"{tag}.tre"), str(tmp_path / f"{tag}.seq")
+        tre_mod.write_tree(tre, forest.parent, forest.pst_weight,
+                           sig="abc" if binary else None)
+        seq_mod.write_sequence(seq, sq, binary=binary)
+        files[tag] = (tre, sq)
+    for a, b in zip(files["p"], files["r"]):
+        for suffix in ("", ".sum"):
+            with open(a + suffix, "rb") as fa, open(b + suffix, "rb") as fb:
+                assert fa.read() == fb.read()
+    assert os.path.getsize(files["p"][0]) == 4 + 8 * len(seq)
+    for tag in ("p", "r"):
+        tre, sq = files[tag]
+        for tre_mod, seq_mod in ((PTR, PSQ), (RTR, RSQ)):
+            parent, pst = tre_mod.read_tree(tre)
+            np.testing.assert_array_equal(parent, forest.parent)
+            np.testing.assert_array_equal(pst, forest.pst_weight)
+            np.testing.assert_array_equal(
+                seq_mod.read_sequence(sq, binary=binary), seq)
+            np.testing.assert_array_equal(
+                seq_mod.read_sequence(sq, binary="auto"), seq)
+
+
+def test_tree_and_sequence_readers_reject_what_the_reference_rejects(
+        tmp_path):
+    from sheep_tpu.integrity.errors import MalformedArtifact as RefMalformed
+    from sheep_tpu.io import seqfile as RSQ, trefile as RTR
+    from sheep_tpu_torch.integrity.errors import MalformedArtifact
+    from sheep_tpu_torch.io import seqfile as PSQ, trefile as PTR
+
+    cases = {
+        "short.tre": b"\x01\x00",
+        "torn.tre": np.uint32(2).tobytes() + b"\x00" * 11,
+        "lying.tre": np.uint32(5).tobytes() + b"\xff" * 8,
+        "cycle.tre": np.uint32(2).tobytes()
+        + np.array([0, 0, 0xFFFFFFFF, 0], "<u4").tobytes(),
+        "bin-as-text.seq": np.uint64(2).tobytes()
+        + np.array([3, 4], "<u4").tobytes(),
+        "garbage.seq": b"1\n2\nx\n",
+    }
+    for name, data in cases.items():
+        path = tmp_path / name
+        path.write_bytes(data)
+        for mods, err in (((PTR, PSQ), MalformedArtifact),
+                          ((RTR, RSQ), RefMalformed)):
+            with pytest.raises(err):
+                if name.endswith(".tre"):
+                    mods[0].read_tree(str(path))
+                else:
+                    mods[1].read_sequence(str(path))
+
+
+def test_edge_writers_and_degrees_equal_reference(tmp_path):
+    rng = np.random.default_rng(6600)
+    tail, head = random_multigraph(rng, 200, 900)
+    for suffix in (".dat", ".net"):
+        a, b = str(tmp_path / f"p{suffix}"), str(tmp_path / f"r{suffix}")
+        PIO.write_edges(a, tail, head)
+        RIO.write_edges(b, tail, head)
+        for s in ("", ".sum"):
+            with open(a + s, "rb") as fa, open(b + s, "rb") as fb:
+                assert fa.read() == fb.read()
+        el = PIO.load_edges(a)
+        np.testing.assert_array_equal(el.tail, tail)
+        np.testing.assert_array_equal(el.head, head)
+        np.testing.assert_array_equal(
+            el.degrees(), RIO.load_edges(b, integrity="trust").degrees())
+        np.testing.assert_array_equal(el.degrees(250)[:5],
+                                      el.degrees()[:5])

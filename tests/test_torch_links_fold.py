@@ -1,5 +1,5 @@
 """The port's resumable fold (sheep_tpu_torch.native.LinksFold,
-csrc/host_fold.cpp begin/block/finish) equals sheep_tpu's native
+csrc/sheep_native.cpp begin/block/finish) equals sheep_tpu's native
 LinksFold, its PyLinksFold twin and the python oracle bit for bit, and the
 monolithic fold, now one block of the same code, still equals the
 reference."""
