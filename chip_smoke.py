@@ -72,8 +72,25 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    built on the card over one sequence (K1 counted), merged by
    merge_forests to the whole tree; the native forward pass against the
    python one on rmat_edges(20, 2^23, seed=1) at 2, 16 and 64 parts; the
-   real-size tree at 2, 16 and 64 parts, the in-memory evaluator equal to
-   the streamed one, the partition and both evaluators timed;
+   real-size tree partitioned at 2, 16 and 64 parts and evaluated at 2
+   and 64, the in-memory evaluator equal to the streamed one, the
+   partition and both evaluators timed;
+9c. the CLI (``cli`` line), the user's entry point: ``graph2tree
+   data/hep-th.dat -i -r -f -c`` on the card in process (the golden
+   TREEFAQS line, ``Tree is valid.``, K1 counted) and as a process of its
+   own (``python -m sheep_tpu_torch.cli.graph2tree``), the same bytes;
+   ``-r -s SEQ``, the serial tool and ``merge_trees`` over ``-l 1/2`` and
+   ``-l 2/2``, the ``-i -s S -o P`` map route's ``P00r0.tre`` and
+   ``--checkpoint-dir`` all the same ``.tre`` and sidecar bytes;
+   ``partition_tree -f -g`` at 2 parts (ECV(down) 521, edges cut 2811,
+   sizes 3409 and 4201).  Then, in a temporary directory, ``make_graph 23
+   8 G.dat 0`` (the records of phase 6's graph; its load timed strict,
+   the sidecar crc included, against trust, in turns), ``degree_sequence``,
+   ``graph2tree G.dat -i -r -s S2.seq -o T.tre`` (K1 counted in its
+   process; S2.seq equal to the tool's sequence, T.tre to the oracle bit
+   for bit), ``partition_tree S.seq T.tre 2 16 64`` and, with
+   SHEEP_EVAL_STREAM=1, ``partition_tree -g`` at 2 parts (ECV(down) equal
+   to phase 9b's), each process timed;
 10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
     single -> host -> stream -> spill, checkpoints in a temporary
     directory) on the real-size graph: equal to the oracle, no degrade,
@@ -1114,14 +1131,15 @@ HEP_BIPARTITION = {"edges_cut": 2811, "vcom_vol": 2061, "ecv_hash": 1311,
 
 
 def partition_phase(device: torch.device, real, small,
-                    real_parts=(2, 16, 64), block: int = 1 << 24):
+                    real_parts=(2, 16, 64), eval_parts=(2, 64),
+                    block: int = 1 << 24):
     """Partitions of trees built on the card: hep-th by the hybrid
     (K1 counted) at 2-9 parts against data/hepth-ecv-baseline.json and
     the golden 2-part report; four partial hep-th forests built on the
     card over one sequence, merged to the whole tree; the native forward
     pass against the python one on ``small``; the real-size tree at
-    ``real_parts`` parts, the in-memory evaluator against the streamed
-    one, each timed."""
+    ``real_parts`` parts, and at ``eval_parts`` of them the in-memory
+    evaluator against the streamed one, each timed."""
     from sheep_tpu_torch.core import (build_forest, degree_sequence,
                                       merge_forests, sequence_positions)
     from sheep_tpu_torch.io import load_edges, read_dat
@@ -1204,6 +1222,10 @@ def partition_phase(device: torch.device, real, small,
     for p in real_parts:
         part, part_s = timed_call(
             lambda: Partition.from_forest(rseq, rforest, p, max_vid=mv))
+        if p not in eval_parts:
+            rec["real"].append({"parts": p, "partition_s": part_s,
+                                "created": part.max_part + 1})
+            continue
         dense, dense_s = timed_call(
             lambda: evaluate_partition(part.parts, tail, head, rseq, p,
                                        max_vid=mv, file_edges=len(tail)))
@@ -1222,6 +1244,208 @@ def partition_phase(device: torch.device, real, small,
                             "edges_cut": dense.edges_cut})
     log("partition " + json.dumps(rec))
     return rec
+
+HEP_PARTITION_LINES = ("Actually created 2 partitions.",
+                       "First two partition sizes: 3409 and 4201",
+                       "edges cut: 2811 ", "ECV(down): 521 ")
+
+
+def run_tool(tool: str, argv: list, env: dict | None = None,
+             count_k1: bool = False, timeout: int = 600):
+    """One CLI tool as a process of its own, ``python -m
+    sheep_tpu_torch.cli.<tool>``, from the checkout's root; returns
+    (stdout, wall s, K1 launches or None).  ``count_k1`` runs the tool's
+    ``main`` through ``python -c`` instead and has the process print K1's
+    launch count on stderr after it, so a run on the card can be counted
+    from outside."""
+    if count_k1:
+        prog = ("import sys\n"
+                f"from sheep_tpu_torch.cli import {tool} as tool\n"
+                "from sheep_tpu_torch.ops import fused_jump\n"
+                "rc = tool.main(sys.argv[1:])\n"
+                "print('k1_launches', fused_jump.launches, file=sys.stderr)\n"
+                "sys.exit(rc)\n")
+        cmd = [sys.executable, "-c", prog] + argv
+    else:
+        cmd = [sys.executable, "-m", f"sheep_tpu_torch.cli.{tool}"] + argv
+    full_env = dict(os.environ)
+    full_env.update(env or {})
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                          env=full_env, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: {tool} {' '.join(argv)} exited "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+    launches = None
+    if count_k1:
+        found = re.findall(r"^k1_launches (\d+)$", proc.stderr, re.M)
+        launches = int(found[-1])
+    return proc.stdout, wall, launches
+
+
+def run_main(module, argv: list, **kw):
+    """A tool's ``main`` in this process, stdout captured; returns
+    (stdout, wall s, K1 launches), every count set to 0 just before."""
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli: {module.__name__} {argv} returned {rc}")
+    return buf.getvalue(), wall, read_counts()["fused_jump"]
+
+
+def same_files(*paths) -> bool:
+    """Equal bytes, and equal sidecars where the first has one."""
+    def read(p):
+        with open(p, "rb") as f:
+            return f.read()
+    first = read(paths[0])
+    ok = all(read(p) == first for p in paths[1:])
+    if os.path.exists(paths[0] + ".sum"):
+        ok = ok and all(read(p + ".sum") == read(paths[0] + ".sum")
+                        for p in paths[1:])
+    return ok
+
+
+def cli_phase(device: torch.device, real, part_rec: dict, log_n: int = 23,
+              factor: int = 8):
+    """The port's CLI, the user's entry point: hep-th through ``graph2tree
+    -i -r`` on the card in process (K1 counted, the golden TREEFAQS line)
+    and as a process of its own; ``-r -s``, the serial tool and
+    ``merge_trees`` over two record slices, the ``-i`` map route and the
+    checkpointed build, each the same bytes; ``partition_tree`` at 2
+    parts.  Then the real size in a temporary directory: ``make_graph 23
+    8 G.dat 0`` (``log_n``, ``factor``), its load timed strict against
+    trust, ``degree_sequence``, ``graph2tree -i -r -s`` (K1 counted in its
+    process), equal to the oracle of ``real`` bit for bit, and
+    ``partition_tree`` in memory and streamed, against ``part_rec`` (the
+    partition phase's record)."""
+    import shutil
+    import tempfile
+
+    from sheep_tpu_torch.cli import (degree_sequence, graph2tree,
+                                     merge_trees, partition_tree)
+    from sheep_tpu_torch.integrity import read_sidecar
+    from sheep_tpu_torch.io import read_dat, read_sequence, read_tree
+
+    hep = os.path.join(ROOT, "data", "hep-th.dat")
+    rec: dict = {"hep": {}, "real": {}}
+    checks: dict = {}
+    tmp = tempfile.mkdtemp(prefix="sheep-cli.")
+    try:
+        t = lambda name: os.path.join(tmp, name)
+        out, wall, k1 = run_main(graph2tree, [hep, "-i", "-r", "-f", "-c",
+                                              "-o", t("ir.tre")],
+                                 device=device)
+        checks["hep_ir_golden"] = GOLDEN_TREEFAQS in out
+        checks["hep_ir_valid"] = "Tree is valid." in out
+        checks["hep_ir_k1"] = k1 > 0
+        rec["hep"]["ir"] = {"wall_s": wall, "k1_launches": k1}
+        out, wall, _ = run_tool("graph2tree", [hep, "-i", "-r", "-f", "-c",
+                                               "-o", t("ir_proc.tre")])
+        checks["hep_ir_process_golden"] = (GOLDEN_TREEFAQS in out
+                                           and "Tree is valid." in out)
+        checks["hep_ir_process_bytes"] = same_files(t("ir.tre"),
+                                                    t("ir_proc.tre"))
+        rec["hep"]["ir_process_wall_s"] = wall
+        run_main(degree_sequence, [hep, t("s.seq")])
+        run_main(graph2tree, [hep, "-s", t("s.seq"), "-o", t("serial.tre")])
+        _, wall, k1 = run_main(graph2tree, [hep, "-r", "-s", t("s.seq"),
+                                            "-o", t("r.tre")], device=device)
+        rec["hep"]["r"] = {"wall_s": wall, "k1_launches": k1}
+        for k in (1, 2):
+            run_main(graph2tree, [hep, "-l", f"{k}/2", "-s", t("s.seq"),
+                                  "-o", t(f"p{k}.tre")])
+        run_main(merge_trees, [t("p1.tre"), t("p2.tre"), "-o",
+                               t("merged.tre")])
+        checks["hep_r_serial_merged"] = same_files(
+            t("r.tre"), t("serial.tre"), t("merged.tre"), t("ir.tre"))
+        _, wall, k1 = run_main(graph2tree, [hep, "-i", "-s", t("i.seq"),
+                                            "-o", t("P")], device=device)
+        rec["hep"]["i_map"] = {"wall_s": wall, "k1_launches": k1}
+        checks["hep_i_map"] = (same_files(t("P00r0.tre"), t("ir.tre"))
+                               and same_files(t("i.seq"), t("s.seq")))
+        _, wall, k1 = run_main(graph2tree, [hep, "-i", "-r",
+                                            "--checkpoint-dir", t("ck"),
+                                            "-o", t("ck.tre")],
+                               device=device)
+        rec["hep"]["checkpoint"] = {"wall_s": wall, "k1_launches": k1}
+        checks["hep_checkpoint"] = same_files(t("ck.tre"), t("ir.tre"))
+        out, _, _ = run_main(partition_tree, ["-f", "-g", hep, t("s.seq"),
+                                              t("ir.tre"), "2"])
+        checks["hep_partition"] = all(ln in out
+                                      for ln in HEP_PARTITION_LINES)
+        if not all(checks.values()):
+            raise AssertionError(f"cli: hep-th checks failed: {checks}")
+        shutil.rmtree(tmp)
+        tmp = tempfile.mkdtemp(prefix="sheep-cli-real.")
+
+        tail, head, want_seq, want = real
+        out, rec["real"]["make_graph_s"], _ = run_tool(
+            "make_graph", [str(log_n), str(factor), t("G.dat"), "0"])
+        # the strict load (the default: the sidecar's crc over the whole
+        # file) against trust (no sidecar read), in turns
+        loads = {"strict": [], "trust": []}
+        for policy in ("strict", "trust", "trust", "strict"):
+            el, load_s = timed_call(lambda: read_dat(t("G.dat"),
+                                                     integrity=policy))
+            loads[policy].append(load_s)
+            if "real_make_graph_is_real_inputs" not in checks:
+                checks["real_make_graph_is_real_inputs"] = (
+                    np.array_equal(el.tail, tail)
+                    and np.array_equal(el.head, head))
+            del el
+        rec["real"]["load_strict_s"] = loads["strict"]
+        rec["real"]["load_trust_s"] = loads["trust"]
+        rec["real"]["sidecar_algo"] = read_sidecar(t("G.dat"))["algo"]
+        _, rec["real"]["degree_sequence_s"], _ = run_tool(
+            "degree_sequence", [t("G.dat"), t("S.seq")])
+        out, wall, k1 = run_tool(
+            "graph2tree", [t("G.dat"), "-i", "-r", "-s", t("S2.seq"), "-o",
+                           t("T.tre")], count_k1=True)
+        rec["real"]["graph2tree_ir_s"] = wall
+        rec["real"]["graph2tree_k1_launches"] = k1
+        rec["real"]["graph2tree_phases"] = [
+            ln for ln in out.splitlines() if " in: " in ln]
+        checks["real_ir_k1"] = k1 > 0
+        checks["real_seq_tools_agree"] = same_files(t("S.seq"), t("S2.seq"))
+        parent, pst = read_tree(t("T.tre"))
+        checks["real_tree_equals_oracle"] = (
+            np.array_equal(read_sequence(t("S.seq")), want_seq)
+            and np.array_equal(parent, want.parent)
+            and np.array_equal(pst, want.pst_weight))
+        del parent, pst
+        out, rec["real"]["partition_tree_s"], _ = run_tool(
+            "partition_tree", [t("S.seq"), t("T.tre"), "2", "16", "64"])
+        created = [int(x) for x in
+                   re.findall(r"^Actually created (\d+) partitions\.$",
+                              out, re.M)]
+        want_created = [r["created"] for r in part_rec["real"]]
+        checks["real_partition_print"] = created == want_created
+        out, rec["real"]["partition_tree_streamed_s"], _ = run_tool(
+            "partition_tree", ["-g", t("G.dat"), t("S.seq"), t("T.tre"),
+                               "2"], env={"SHEEP_EVAL_STREAM": "1"})
+        ecv = [int(x) for x in re.findall(r"^ECV\(down\): (\d+) ", out,
+                                          re.M)]
+        want_ecv = next(r["ecv_down"] for r in part_rec["real"]
+                        if r["parts"] == 2)
+        rec["real"]["ecv_down_2"] = ecv
+        checks["real_streamed_ecv_down_2"] = ecv == [want_ecv]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["checks"] = checks
+    log("cli " + json.dumps(rec))
+    if not all(checks.values()):
+        raise AssertionError(f"cli: checks failed: {checks}")
+    return rec
+
 
 class SaveRecorder:
     """Times every checkpoint save of the fault-tolerant build and reads
@@ -1626,7 +1850,8 @@ def main() -> int:
     fetch_phase(device)
     small_data = real_inputs(20, 23, 1)
     streaming_phase(device, real_data, small_data)
-    partition_phase(device, real_data, small_data)
+    part_rec = partition_phase(device, real_data, small_data)
+    cli_phase(device, real_data, part_rec)
     # the default tail's last run (the runs in between are other arms)
     main_run = next(r for r in reversed(real) if r["arm"] == "stream")
     resilient_real(device, real_data, main_run["wall_s"])

@@ -29,18 +29,26 @@ Layout:
   integrity/, resources/, plan/, obs/
               the host layers the runtime stands on: sidecar checksums,
               budgets and retention, the rung planner, the trace
+  cli/        the command-line tools (python -m sheep_tpu_torch.cli.<tool>:
+              graph2tree, degree_sequence, make_graph, partition_tree,
+              merge_trees, fsck)
+  parallel/   the -i/-r build at world size 1 (the hybrid on the card)
+  supervisor/ the worker heartbeat
   scripts/    tools: the backend probe (python -m
               sheep_tpu_torch.scripts.kernel_probe)
-  utils/      synthetic R-MAT graphs, the environment capture
+  utils/      synthetic R-MAT graphs, the environment capture, the
+              SHEEP_* knob registry
   convert     numpy state <-> tensors on a device
 
 The host layers are copies of the reference's modules; their notes still
-name reference modules the port has not ported yet (serve/, supervisor/,
-the CLI, ops/extmem.py, core/jxn.py), whose queue is in ROADMAP.md.
+name reference modules the port has not ported yet (serve/, most of
+supervisor/, ops/extmem.py, ops/distext.py, core/jxn.py), whose queue is
+in ROADMAP.md §1 (``QUEUE`` below names each item).
 
 Entry points (``ops.build.build_graph_hybrid``, ``build_graph_device``,
-``runtime.build_graph_resilient``, the probe tool) run on the CUDA card
-unless the caller passes ``device="cpu"``.
+``runtime.build_graph_resilient``, ``parallel.build_graph_distributed``,
+``cli.graph2tree.main`` on its -i/-r and checkpoint routes, the probe
+tool) run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -50,6 +58,24 @@ import torch
 INVALID_JNID = 0xFFFFFFFF
 INVALID_VID = 0xFFFFFFFF
 INVALID_PART = -1
+
+#: reference modules not ported yet, by their ROADMAP.md §1 queue item;
+#: a route that needs one fails with a message naming its item
+QUEUE = {
+    "extmem": "item 1 (ops/extmem.py)",
+    "jxn": "item 2 (core/jxn.py)",
+    "parallel": "item 3 (parallel/ over torch.distributed)",
+    "distext": "item 4 (ops/distext.py)",
+    "serve": "item 6 (serve/)",
+    "supervisor": "item 7 (supervisor/)",
+}
+
+
+def unported(*keys: str) -> str:
+    """The tail of the message a route that needs the ``QUEUE`` items
+    ``keys`` raises."""
+    return (f"is not ported to sheep_tpu_torch yet: it waits for "
+            f"ROADMAP.md §1 {' and '.join(QUEUE[k] for k in keys)}")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,11 +1,12 @@
-"""Data integrity for the artifacts the fault-tolerant build writes (port
-of sheep_tpu/integrity, its sidecar layer only).
+"""Data integrity for the port's artifacts (port of sheep_tpu/integrity).
 
   errors.py    the IntegrityError taxonomy (ChecksumMismatch,
                MalformedArtifact, IncompatibleMerge)
   sidecar.py   ``.sum`` sidecar checksums sealed beside every artifact and
                verified on read under a strict/repair/trust policy (env
                ``SHEEP_INTEGRITY``)
+  fsck.py      verify any artifact or trial directory (``cli/fsck.py``);
+               artifacts of unported modules are reported as failures
 
 The fast forest oracle is ``core.validate.check_forest_fast``.
 """

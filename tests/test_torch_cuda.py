@@ -6,7 +6,8 @@ streamed, serial and speculative arms, the last also forced to hand off
 the snapshot its side stream fetched) against the port's host oracle,
 and the fault-tolerant build on the card (K1 on its single rung, a kill
 and resume, a real CUDA out-of-memory error and a watchdog on a held
-dispatch, each degrading to the host rung, and the watchdog's stream).
+dispatch, each degrading to the host rung, and the watchdog's stream),
+and ``graph2tree -i -r`` on hep-th, the user's entry point to K1.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 CUDA kernels with no CPU or interpret mode).  This file imports no jax, so it
@@ -507,3 +508,32 @@ def test_cuda_watchdog_enqueues_on_the_callers_stream(cuda):
     assert int(out[5]) == 8
     out = call_with_watchdog(dispatch, 1, None)  # no watchdog: this thread
     assert seen[-1] == torch.cuda.current_stream() and int(out[0]) == 1
+
+
+def test_cuda_graph2tree_ir_on_hepth(cuda, tmp_path, capsys):
+    """The user's entry point on the card: ``graph2tree data/hep-th.dat -i
+    -r -f -c`` prints the golden TREEFAQS line and ``Tree is valid.``, and
+    its build launched K1."""
+    import os
+
+    from sheep_tpu_torch.cli import graph2tree
+
+    hep = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "data", "hep-th.dat")
+    pj.launches = 0
+    assert graph2tree.main([hep, "-i", "-r", "-f", "-c", "-o",
+                            str(tmp_path / "t.tre")]) == 0
+    torch.cuda.synchronize()
+    assert pj.launches > 0
+    out = capsys.readouterr().out
+    assert ("TREEFAQS: width:24\troots:581\n\tvheight:754\teheight:2330\n"
+            "\tverts:7610\tedges:15751\n\thalo:3532\tcore:0\n\tfill:0\n"
+            ) in out
+    assert "Tree is valid." in out and "Reduced in:" in out
+    from sheep_tpu_torch.io import load_edges, read_tree
+
+    el = load_edges(hep)
+    want = build_forest(el.tail, el.head, degree_sequence(el.tail, el.head))
+    parent, pst = read_tree(str(tmp_path / "t.tre"))
+    assert np.array_equal(parent, want.parent)
+    assert np.array_equal(pst, want.pst_weight)

@@ -26,7 +26,15 @@ NEW_MODULES = (
     "sheep_tpu_torch.resources.gc", "sheep_tpu_torch.resources.governor",
     "sheep_tpu_torch.runtime", "sheep_tpu_torch.runtime.driver",
     "sheep_tpu_torch.runtime.faults", "sheep_tpu_torch.runtime.retry",
-    "sheep_tpu_torch.runtime.snapshot", "sheep_tpu_torch.utils.envinfo")
+    "sheep_tpu_torch.runtime.snapshot", "sheep_tpu_torch.utils.envinfo",
+    # the CLI and what it stands on
+    "sheep_tpu_torch.cli", "sheep_tpu_torch.cli.common",
+    "sheep_tpu_torch.cli.degree_sequence", "sheep_tpu_torch.cli.fsck",
+    "sheep_tpu_torch.cli.graph2tree", "sheep_tpu_torch.cli.make_graph",
+    "sheep_tpu_torch.cli.merge_trees", "sheep_tpu_torch.cli.partition_tree",
+    "sheep_tpu_torch.integrity.fsck", "sheep_tpu_torch.parallel",
+    "sheep_tpu_torch.parallel.build", "sheep_tpu_torch.supervisor",
+    "sheep_tpu_torch.supervisor.heartbeat", "sheep_tpu_torch.utils.knobs")
 
 
 def _modules():
@@ -73,7 +81,10 @@ def test_importing_every_module_loads_no_jax_and_no_sheep_tpu():
     # the fault-tolerant build's subpackages, each on its own
     "sheep_tpu_torch/runtime", "sheep_tpu_torch/integrity",
     "sheep_tpu_torch/resources", "sheep_tpu_torch/plan",
-    "sheep_tpu_torch/obs", "sheep_tpu_torch/io"])
+    "sheep_tpu_torch/obs", "sheep_tpu_torch/io",
+    # the CLI and what it stands on
+    "sheep_tpu_torch/cli", "sheep_tpu_torch/parallel",
+    "sheep_tpu_torch/supervisor", "sheep_tpu_torch/utils"])
 def test_source_imports_no_jax_and_no_sheep_tpu(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [

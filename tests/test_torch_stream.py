@@ -24,6 +24,7 @@ from sheep_tpu.io.edges import load_edges as ref_load_edges
 from sheep_tpu.io.edges import write_dat
 
 import sheep_tpu_torch.ops.forest as PF
+from sheep_tpu_torch.integrity import MalformedArtifact
 from sheep_tpu_torch.io import iter_dat_blocks, load_edges
 from sheep_tpu_torch.ops import (build_graph_streaming,
                                  build_graph_streaming_hosted,
@@ -151,14 +152,16 @@ def test_iter_dat_blocks_roundtrip(tmp_path, kw):
 
 
 def test_iter_dat_blocks_torn_and_empty(tmp_path):
-    """Trust mode: a torn trailing record is dropped; an empty file yields
-    nothing."""
+    """Trust mode: a torn trailing record is dropped (strict, the
+    default, refuses it); an empty file yields nothing."""
     path = str(tmp_path / "g.dat")
     write_dat(path, np.arange(10, dtype=np.uint32),
               np.arange(10, dtype=np.uint32)[::-1].copy())
     with open(path, "ab") as f:
         f.write(b"\x01\x02\x03")
-    got = list(iter_dat_blocks(path, 4))
+    with pytest.raises(MalformedArtifact):
+        list(iter_dat_blocks(path, 4))
+    got = list(iter_dat_blocks(path, 4, integrity="trust"))
     assert [len(t) for t, _ in got] == [4, 4, 2]
     np.testing.assert_array_equal(np.concatenate([t for t, _ in got]),
                                   np.arange(10))
