@@ -90,7 +90,25 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    process; S2.seq equal to the tool's sequence, T.tre to the oracle bit
    for bit), ``partition_tree S.seq T.tre 2 16 64`` and, with
    SHEEP_EVAL_STREAM=1, ``partition_tree -g`` at 2 parts (ECV(down) equal
-   to phase 9b's), each process timed;
+   to phase 9b's), each process timed; the real-size files stay for
+   9d;
+9d. the external-memory build (``ext`` line), host code that loads no
+   torch: the reference's published deployment (EXTBENCH_r01.json), an
+   R-MAT graph of 2^26 records over 2^20 vertices written in 16 chunks
+   (seeds 17+i, no sidecar, 768 MiB), built by ``graph2tree E.dat -o
+   E_ext.tre`` under SHEEP_MEM_BUDGET=192M with no ``--ext`` (the budget
+   must route it to ext, the process must peak under 192 MiB (VmHWM
+   where /proc has it, else VmRSS sampled every 5 ms) and never load
+   torch, and the tree must equal the unbudgeted
+   in-RAM run's byte for byte), with its wall, records/s and perf
+   record; ``plan --explain`` on E.dat under the budget (it must choose
+   ext); ``graph2tree G.dat --ext -s S.seq`` on 9c's files at the default
+   block and, unbudgeted, with SHEEP_EXT_BLOCK=4M, each equal to ``-i
+   -r``'s T.tre byte for byte; the fault-tolerant build on the real-size
+   records with ladder single -> ext, ``edges_path`` G.dat and 4M
+   blocks, the single rung's second dispatch failing for good (K1
+   launched on single, a degrade single -> ext, ext-block events, equal
+   to the oracle);
 10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
     single -> host -> stream -> spill, checkpoints in a temporary
     directory) on the real-size graph: equal to the oracle, no degrade,
@@ -109,6 +127,13 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
     no resume degrades, and each resume on the single rung launches K1;
     K1 failing to launch fails the build with no retry and no degrade
     (``resilient {...}`` lines);
+12b. the treewidth mode (``jxn`` line): hep-th ``graph2tree -k -e -j -f
+    -c`` as a process (TREEFAQS width:551, ``Tree is valid.``, no torch)
+    and ``-i -r -k -e -j -f -c`` in process, its degree sort on the card
+    (the same lines and .tre); the reference's published configuration
+    ``graph2tree R.dat -k -e -j -w 64 -m 16384`` on R-MAT 2^20 x 8, timed
+    as a process with its peak RSS, max width and fill, its tree equal to
+    the insert run here and valid under ``core.validate``;
 13. a ``kernels`` JSON line, the card's name and power limit, then the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -125,9 +150,11 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1315,7 +1342,7 @@ def same_files(*paths) -> bool:
 
 
 def cli_phase(device: torch.device, real, part_rec: dict, log_n: int = 23,
-              factor: int = 8):
+              factor: int = 8, keep: str | None = None):
     """The port's CLI, the user's entry point: hep-th through ``graph2tree
     -i -r`` on the card in process (K1 counted, the golden TREEFAQS line)
     and as a process of its own; ``-r -s``, the serial tool and
@@ -1326,7 +1353,9 @@ def cli_phase(device: torch.device, real, part_rec: dict, log_n: int = 23,
     trust, ``degree_sequence``, ``graph2tree -i -r -s`` (K1 counted in its
     process), equal to the oracle of ``real`` bit for bit, and
     ``partition_tree`` in memory and streamed, against ``part_rec`` (the
-    partition phase's record)."""
+    partition phase's record).  ``keep``: a directory that receives the
+    real-size files (G.dat, S.seq, T.tre) and is left in place, for the
+    ext phase."""
     import shutil
     import tempfile
 
@@ -1385,7 +1414,7 @@ def cli_phase(device: torch.device, real, part_rec: dict, log_n: int = 23,
         if not all(checks.values()):
             raise AssertionError(f"cli: hep-th checks failed: {checks}")
         shutil.rmtree(tmp)
-        tmp = tempfile.mkdtemp(prefix="sheep-cli-real.")
+        tmp = keep or tempfile.mkdtemp(prefix="sheep-cli-real.")
 
         tail, head, want_seq, want = real
         out, rec["real"]["make_graph_s"], _ = run_tool(
@@ -1439,12 +1468,341 @@ def cli_phase(device: torch.device, real, part_rec: dict, log_n: int = 23,
         rec["real"]["ecv_down_2"] = ecv
         checks["real_streamed_ecv_down_2"] = ecv == [want_ecv]
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if tmp != keep:
+            shutil.rmtree(tmp, ignore_errors=True)
     rec["checks"] = checks
     log("cli " + json.dumps(rec))
     if not all(checks.values()):
         raise AssertionError(f"cli: checks failed: {checks}")
     return rec
+
+
+#: one tool run as a process through ``python -c``: ``main`` runs as
+#: ``python -m`` would run it, with ops.extmem's two entry points wrapped
+#: to record their events and perf record; at exit, however the tool
+#: ended, one ``proc_record {...}`` line on stderr: the process's peak
+#: RSS, whether torch was loaded, and what the ext build did.  The peak is
+#: the larger of VmHWM, where /proc reports it, and VmRSS sampled every
+#: 5 ms from the start.  The GPU machine's /proc has no VmHWM, and its
+#: ru_maxrss (recorded, not used) carries the parent's peak across exec;
+#: ``start_rss_bytes`` is the RSS the tool's process started from
+PROC_WRAPPER = """\
+import json, resource, runpy, sys, threading, time
+def rss_now():
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) * 1024
+    return 0
+seen = {"start": rss_now()}
+seen["peak"] = seen["start"]
+def sample():
+    while True:
+        seen["peak"] = max(seen["peak"], rss_now())
+        time.sleep(0.005)
+threading.Thread(target=sample, daemon=True).start()
+from sheep_tpu_torch.ops import extmem
+rec = {"ext_calls": 0, "events": [], "perf": {}}
+def wrap(fn, count):
+    def inner(*a, **kw):
+        rec["ext_calls"] += count
+        kw["perf"] = rec["perf"]
+        if count:
+            kw["events"] = rec["events"]
+        return fn(*a, **kw)
+    return inner
+extmem.build_forest_extmem = wrap(extmem.build_forest_extmem, 1)
+extmem.streaming_degree_sequence = wrap(extmem.streaming_degree_sequence, 0)
+mod = sys.argv.pop(1)
+sys.argv[0] = mod
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+finally:
+    seen["peak"] = max(seen["peak"], rss_now())
+    hwm = None
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmHWM:"):
+                hwm = int(ln.split()[1]) * 1024
+    maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    blocks = [e for e in rec["events"] if e[0] == "ext-block"]
+    out = {"peak_rss_bytes": max(hwm or 0, seen["peak"]),
+           "vmhwm_bytes": hwm, "ru_maxrss_bytes": maxrss,
+           "sampled_rss_bytes": seen["peak"],
+           "start_rss_bytes": seen["start"],
+           "torch_loaded": "torch" in sys.modules,
+           "ext_calls": rec["ext_calls"], "ext_blocks": len(blocks),
+           "strategies": sorted({e[3] for e in blocks}),
+           "perf": rec["perf"]}
+    sys.stderr.write("\\nproc_record " + json.dumps(out) + "\\n")
+"""
+
+
+def run_wrapped(tool: str, argv: list, env: dict | None = None,
+                timeout: int = 600):
+    """One CLI tool as a process of its own through PROC_WRAPPER; returns
+    (stdout, wall s, its proc_record)."""
+    full_env = dict(os.environ)
+    full_env.update(env or {})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", PROC_WRAPPER,
+         f"sheep_tpu_torch.cli.{tool}"] + argv,
+        capture_output=True, text=True, cwd=ROOT, env=full_env,
+        timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{tool} {' '.join(argv)} exited "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+    found = re.findall(r"^proc_record (.*)$", proc.stderr, re.M)
+    return proc.stdout, wall, json.loads(found[-1])
+
+
+#: the reference's published ext deployment (EXTBENCH_r01.json,
+#: scripts/extbench.py): 2^26 R-MAT records over 2^20 vertices, written
+#: in 16 chunks of 2^22 records with seeds 17+i and no sidecar, a 768 MiB
+#: file 4x over a 192M SHEEP_MEM_BUDGET
+EXT_BUDGET = "192M"
+EXT_BUDGET_BYTES = 192 << 20
+
+
+def write_extbench(path: str, log_n: int = 20, records: int = 1 << 26,
+                   chunk: int = 1 << 22, seed: int = 17) -> float:
+    """Write the EXTBENCH graph in bounded chunks with the port's R-MAT
+    generator and its XS1 record layout (sidecar-less, as the reference's
+    generator writes it); returns the seconds taken."""
+    from sheep_tpu_torch.io.edges import _XS1_DTYPE
+    from sheep_tpu_torch.utils import rmat_edges
+
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        done = i = 0
+        while done < records:
+            m = min(chunk, records - done)
+            tail, head = rmat_edges(log_n, m, seed=seed + i)
+            rec = np.empty(m, dtype=_XS1_DTYPE)
+            rec["tail"] = tail
+            rec["head"] = head
+            rec["weight"] = 1.0
+            f.write(rec.tobytes())
+            done += m
+            i += 1
+    return time.perf_counter() - t0
+
+
+def ext_phase(device: torch.device, real, gdir: str,
+              extbench: dict | None = None):
+    """The external-memory build, which is host code and loads no torch
+    (``ext`` line):
+
+    1. the EXTBENCH graph (``write_extbench``, or ``extbench`` for a
+       smaller one) built by ``graph2tree E.dat -o E_ext.tre`` under
+       SHEEP_MEM_BUDGET=192M with no ``--ext``: the budget must route it
+       to ext, the process must peak under 192 MiB (PROC_WRAPPER's
+       peak) and never load torch,
+       and its tree must equal the unbudgeted in-RAM run's byte for byte;
+    2. ``graph2tree G.dat --ext -s S.seq`` on the cli phase's real-size
+       files in ``gdir``, and unbudgeted with SHEEP_EXT_BLOCK=4M, each
+       equal to ``-i -r``'s T.tre byte for byte;
+    3. the ext rung on the card's ladder: ``build_graph_resilient`` on
+       ``real``'s records with ladder single -> ext, ``edges_path`` G.dat,
+       4M blocks and the single rung's second dispatch failing for good: K1
+       launched on single, a degrade single -> ext, ext-block events, and
+       seq, parent and pst equal to the oracle;
+    4. ``plan --explain --assume-rss`` on E.dat under the budget chooses
+       ext."""
+    import shutil
+    import tempfile
+
+    from sheep_tpu_torch.io import read_tree
+    from sheep_tpu_torch.runtime import (FaultPlan, RuntimeConfig,
+                                         build_graph_resilient, clear_plan,
+                                         install_plan, reset_counters)
+
+    rec: dict = {"extbench": {}, "real": {}, "ladder": {}, "plan": {}}
+    checks: dict = {}
+    tmp = tempfile.mkdtemp(prefix="sheep-ext.")
+    try:
+        t = lambda name: os.path.join(tmp, name)
+        g = lambda name: os.path.join(gdir, name)
+        kw = extbench or {}
+        rec["extbench"]["write_s"] = write_extbench(t("E.dat"), **kw)
+        records = os.path.getsize(t("E.dat")) // 12
+        rec["extbench"]["file_bytes"] = os.path.getsize(t("E.dat"))
+        out, wall, proc = run_wrapped(
+            "graph2tree", [t("E.dat"), "-o", t("E_ext.tre")],
+            env={"SHEEP_MEM_BUDGET": EXT_BUDGET})
+        rec["extbench"].update(
+            budgeted_wall_s=wall, records=records,
+            records_per_s=records / wall,
+            peak_rss_bytes=proc["peak_rss_bytes"],
+            rss_sources={k: proc[k] for k in (
+                "vmhwm_bytes", "ru_maxrss_bytes", "sampled_rss_bytes",
+                "start_rss_bytes")},
+            torch_loaded=proc["torch_loaded"], ext_blocks=proc["ext_blocks"],
+            perf=proc["perf"],
+            phases=[ln for ln in out.splitlines() if " in: " in ln])
+        checks["extbench_routed_ext"] = (proc["ext_calls"] == 1
+                                         and proc["ext_blocks"] > 0)
+        checks["extbench_under_budget"] = \
+            proc["peak_rss_bytes"] < EXT_BUDGET_BYTES
+        checks["extbench_no_torch"] = not proc["torch_loaded"]
+        out, wall, proc = run_wrapped("graph2tree",
+                                      [t("E.dat"), "-o", t("E_ram.tre")])
+        rec["extbench"].update(ram_wall_s=wall,
+                               ram_peak_rss_bytes=proc["peak_rss_bytes"])
+        checks["extbench_ram_in_ram"] = proc["ext_calls"] == 0
+        checks["extbench_tree_equals_ram"] = same_files(t("E_ext.tre"),
+                                                        t("E_ram.tre"))
+        # the planner tool on the same file and budget, with the RSS the
+        # budgeted build's process started from pinned
+        assume = 40 << 20
+        out, wall, _ = run_tool("plan", ["--explain", "--assume-rss",
+                                         str(assume), t("E.dat")],
+                                env={"SHEEP_MEM_BUDGET": EXT_BUDGET})
+        rec["plan"] = {"wall_s": wall, "assume_rss": assume,
+                       "text": out.splitlines()}
+        checks["plan_chooses_ext"] = "chosen rung: ext " in out
+        os.unlink(t("E.dat"))
+
+        for name, argv, env in (
+                ("ext_default_block", ["--ext"], {}),
+                ("ext_block_4M", [], {"SHEEP_EXT_BLOCK": "4M"})):
+            out, wall, proc = run_wrapped(
+                "graph2tree", [g("G.dat"), *argv, "-s", g("S.seq"), "-o",
+                               t(f"{name}.tre")], env=env)
+            rec["real"][name] = {
+                "wall_s": wall, "peak_rss_bytes": proc["peak_rss_bytes"],
+                "torch_loaded": proc["torch_loaded"],
+                "ext_blocks": proc["ext_blocks"],
+                "strategies": proc["strategies"], "perf": proc["perf"]}
+            checks[f"real_{name}_equals_ir"] = (
+                proc["ext_calls"] == 1
+                and same_files(t(f"{name}.tre"), g("T.tre")))
+
+        tail, head, want_seq, want = real
+        cfg = RuntimeConfig(ladder=("single", "ext"), edges_path=g("G.dat"),
+                            max_retries=1, backoff_base_s=0.0)
+        reset_counters()
+        install_plan(FaultPlan("chunk", 1, "xla", -1))
+        # the rung streams 4M blocks: the default block's time is measured
+        # above, and this run is about the handoff
+        try:
+            with env_set({"SHEEP_EXT_BLOCK": "4M"}):
+                (seq, forest), wall, k1 = counted_build(
+                    lambda: build_graph_resilient(tail, head, config=cfg,
+                                                  device=device),
+                    "ladder single -> ext")
+        finally:
+            clear_plan()
+            reset_counters()
+        degrades = [e[:3] for e in cfg.events if e[0] == "degrade"]
+        blocks = [e for e in cfg.events if e[0] == "ext-block"]
+        rec["ladder"] = {"wall_s": wall, "k1_launches": k1,
+                         "degrades": degrades, "ext_blocks": len(blocks),
+                         "strategies": sorted({e[3] for e in blocks})}
+        checks["ladder_k1_on_single"] = k1 > 0
+        checks["ladder_degrades_to_ext"] = degrades == [
+            ("degrade", "single", "ext")]
+        checks["ladder_ext_blocks"] = len(blocks) > 0
+        checks["ladder_equals_oracle"] = forest_equal(seq, forest, want_seq,
+                                                      want)
+        del seq, forest
+        parent, _ = read_tree(g("T.tre"))
+        checks["real_tree_is_oracle"] = np.array_equal(parent, want.parent)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["checks"] = checks
+    log("ext " + json.dumps(rec))
+    if not all(checks.values()):
+        raise AssertionError(f"ext: checks failed: {checks}")
+    return rec
+
+
+def _faqs(out: str) -> list:
+    """The TREEFAQS block's lines of a tool's stdout."""
+    lines = out.splitlines()
+    at = next(i for i, ln in enumerate(lines) if ln.startswith("TREEFAQS"))
+    return lines[at:at + 5]
+
+
+def jxn_phase(device: torch.device, log_n: int = 20, factor: int = 8,
+              seed: int = 1):
+    """The treewidth mode (``jxn`` line): hep-th ``graph2tree -k -e -j -f
+    -c`` as a process (TREEFAQS width:551, ``Tree is valid.``, no torch)
+    and ``-i -r -k -e -j -f -c`` in process, whose degree sort runs on
+    the card (the same lines and the same .tre); then the reference's
+    published configuration ``graph2tree R20.dat -k -e -j -w 64 -m 16384``
+    on R-MAT 2^20 x 8 (``make_graph``), timed as a process, its tree
+    equal to the port's insert in this process and valid under
+    ``core.validate``."""
+    import shutil
+    import tempfile
+
+    from sheep_tpu_torch.cli import graph2tree
+    from sheep_tpu_torch.core import (JxnOptions, build_forest_jxn,
+                                      degree_sequence, is_valid_forest)
+    from sheep_tpu_torch.io import load_edges, read_tree
+
+    hep = os.path.join(ROOT, "data", "hep-th.dat")
+    rec: dict = {"hep": {}, "scale": {}}
+    checks: dict = {}
+    tmp = tempfile.mkdtemp(prefix="sheep-jxn.")
+    try:
+        t = lambda name: os.path.join(tmp, name)
+        out, wall, proc = run_wrapped(
+            "graph2tree", [hep, "-k", "-e", "-j", "-f", "-c", "-o",
+                           t("J.tre")])
+        faqs = _faqs(out)
+        rec["hep"]["serial"] = {"wall_s": wall, "faqs": faqs,
+                                "torch_loaded": proc["torch_loaded"]}
+        checks["hep_serial_width_551"] = faqs[0].startswith(
+            "TREEFAQS: width:551\t")
+        checks["hep_serial_valid"] = "Tree is valid." in out
+        checks["hep_serial_no_torch"] = not proc["torch_loaded"]
+        out, wall, _ = run_main(graph2tree, [hep, "-i", "-r", "-k", "-e",
+                                             "-j", "-f", "-c", "-o",
+                                             t("J_ir.tre")], device=device)
+        rec["hep"]["ir"] = {"wall_s": wall}
+        checks["hep_ir_same_faqs"] = _faqs(out) == faqs
+        checks["hep_ir_valid"] = "Tree is valid." in out
+        checks["hep_ir_same_tree"] = same_files(t("J.tre"), t("J_ir.tre"))
+
+        _, rec["scale"]["make_graph_s"], _ = run_tool(
+            "make_graph", [str(log_n), str(factor), t("R.dat"), str(seed)])
+        argv = [t("R.dat"), "-k", "-e", "-j", "-w", "64", "-m", "16384",
+                "-f", "-o", t("RJ.tre")]
+        out, wall, proc = run_wrapped("graph2tree", argv)
+        faqs = _faqs(out)
+        width = int(re.search(r"width:(\d+)", faqs[0]).group(1))
+        fill = int(re.search(r"fill:(\d+)", faqs[4]).group(1))
+        rec["scale"].update(wall_s=wall, max_width=width, fill=fill,
+                            peak_rss_bytes=proc["peak_rss_bytes"],
+                            torch_loaded=proc["torch_loaded"],
+                            phases=[ln for ln in out.splitlines()
+                                    if " in: " in ln])
+        el = load_edges(t("R.dat"))
+        opts = JxnOptions(make_kids=True, make_pst=True, make_jxn=True,
+                          width_limit=64, memory_limit=16384 << 20)
+        forest, eseq, widths = build_forest_jxn(
+            el.tail, el.head, degree_sequence(el.tail, el.head), opts)
+        parent, pst = read_tree(t("RJ.tre"))
+        checks["scale_tree_equals_insert"] = (
+            np.array_equal(parent, forest.parent)
+            and np.array_equal(pst, forest.pst_weight))
+        checks["scale_width"] = int(widths.max()) == width
+        checks["scale_valid"] = bool(is_valid_forest(
+            forest, el.tail, el.head, eseq, max_vid=el.max_vid))
+        checks["scale_no_torch"] = not proc["torch_loaded"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["checks"] = checks
+    log("jxn " + json.dumps(rec))
+    if not all(checks.values()):
+        raise AssertionError(f"jxn: checks failed: {checks}")
+    return rec
+
 
 
 class SaveRecorder:
@@ -1851,13 +2209,19 @@ def main() -> int:
     small_data = real_inputs(20, 23, 1)
     streaming_phase(device, real_data, small_data)
     part_rec = partition_phase(device, real_data, small_data)
-    cli_phase(device, real_data, part_rec)
+    gdir = tempfile.mkdtemp(prefix="sheep-real.")
+    try:
+        cli_phase(device, real_data, part_rec, keep=gdir)
+        ext_phase(device, real_data, gdir)
+    finally:
+        shutil.rmtree(gdir, ignore_errors=True)
     # the default tail's last run (the runs in between are other arms)
     main_run = next(r for r in reversed(real) if r["arm"] == "stream")
     resilient_real(device, real_data, main_run["wall_s"])
     del real_data
     device_phase(device, small_data)
     resilient_faults(device, small_data)
+    jxn_phase(device)
     timed = next(r for r in k1 if r["case"] == "real_L4")
     kernels = [{
         "name": "fused_jump", "route": "cuda",

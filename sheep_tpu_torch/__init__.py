@@ -8,12 +8,14 @@ Layout:
   core/       host oracle: Forest, build_forest (+ streaming, merge,
               pre weights), sequences, tree facts, the streamed
               handoff's window bounds and resumable fold, the fast
-              forest validator (core/validate.py)
+              forest validator (core/validate.py), the treewidth mode
+              (core/jxn.py)
   native/     ctypes binding of the native host runtime
               (csrc/sheep_native.cpp): the union-find fold (plain,
               cache-blocked, OpenMP-threaded; monolithic, resumable,
               fused from edges), the fused degree sort, the forward
-              tree partition, FENNEL, the evaluator's block
+              tree partition, FENNEL, the evaluator's block, the
+              treewidth insert
   io/         edge-list readers and writers (.dat XS1 binary, .net SNAP
               text), .tre and .seq files, the crash-safe writer with
               its fault hooks, the block prefetcher
@@ -23,15 +25,17 @@ Layout:
               hybrid build with its streamed windowed handoff, K1's
               wrapper (ops/fused_jump.py, csrc/fused_jump.cu) and the
               backend probe's kernels P1 and P2 (ops/probe.py,
-              csrc/probe_kernels.cu)
+              csrc/probe_kernels.cu); and the external-memory build
+              (ops/extmem.py), which is host code and loads no torch
   runtime/    the fault-tolerant build: retry, watchdog, checkpoint and
-              resume, the degradation ladder (build_graph_resilient)
+              resume, the degradation ladder (build_graph_resilient,
+              single -> host -> stream -> ext -> spill)
   integrity/, resources/, plan/, obs/
               the host layers the runtime stands on: sidecar checksums,
               budgets and retention, the rung planner, the trace
   cli/        the command-line tools (python -m sheep_tpu_torch.cli.<tool>:
               graph2tree, degree_sequence, make_graph, partition_tree,
-              merge_trees, fsck)
+              merge_trees, fsck, plan)
   parallel/   the -i/-r build at world size 1 (the hybrid on the card)
   supervisor/ the worker heartbeat
   scripts/    tools: the backend probe (python -m
@@ -42,8 +46,13 @@ Layout:
 
 The host layers are copies of the reference's modules; their notes still
 name reference modules the port has not ported yet (serve/, most of
-supervisor/, ops/extmem.py, ops/distext.py, core/jxn.py), whose queue is
-in ROADMAP.md §1 (``QUEUE`` below names each item).
+supervisor/, ops/distext.py, the sharded parallel/ build), whose queue
+is in ROADMAP.md §1 (``QUEUE`` below names each item).
+
+Only the routes that reach the card load torch: the package, ``ops``
+and ``runtime`` resolve their device modules lazily, so the serial,
+external-memory and treewidth builds and the tools run in a process
+that never imports it (a memory budget prices the process's RSS).
 
 Entry points (``ops.build.build_graph_hybrid``, ``build_graph_device``,
 ``runtime.build_graph_resilient``, ``parallel.build_graph_distributed``,
@@ -53,8 +62,6 @@ tool) run on the CUDA card unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-import torch
-
 INVALID_JNID = 0xFFFFFFFF
 INVALID_VID = 0xFFFFFFFF
 INVALID_PART = -1
@@ -62,12 +69,10 @@ INVALID_PART = -1
 #: reference modules not ported yet, by their ROADMAP.md §1 queue item;
 #: a route that needs one fails with a message naming its item
 QUEUE = {
-    "extmem": "item 1 (ops/extmem.py)",
-    "jxn": "item 2 (core/jxn.py)",
-    "parallel": "item 3 (parallel/ over torch.distributed)",
-    "distext": "item 4 (ops/distext.py)",
-    "serve": "item 6 (serve/)",
-    "supervisor": "item 7 (supervisor/)",
+    "parallel": "item 1 (parallel/ over torch.distributed)",
+    "distext": "item 2 (ops/distext.py)",
+    "serve": "item 4 (serve/)",
+    "supervisor": "item 5 (supervisor/)",
 }
 
 
@@ -78,12 +83,16 @@ def unported(*keys: str) -> str:
             f"ROADMAP.md §1 {' and '.join(QUEUE[k] for k in keys)}")
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``None`` means ``"cuda"``.
+def resolve_device(device=None):
+    """The ``torch.device`` an entry point runs on: ``None`` means
+    ``"cuda"``.
 
     Raises RuntimeError when a CUDA device is asked for (explicitly or by
     default) and CUDA is absent — the CPU is used only when the caller
-    names it."""
+    names it.  torch loads here, not at package import: the host routes
+    (the serial and external-memory builds, the tools) never load it."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

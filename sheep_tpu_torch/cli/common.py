@@ -16,7 +16,7 @@ import time
 import numpy as np
 
 from .. import unported
-from ..runtime.driver import RuntimeConfig
+from ..runtime.config import RuntimeConfig
 from ..supervisor.heartbeat import maybe_start_from_env
 
 

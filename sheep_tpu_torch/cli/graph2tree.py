@@ -12,22 +12,37 @@ Routes:
                 reduce loop launches K1); ``-i`` without ``-r`` and with
                 ``-o`` writes the per-worker partial trees
                 ``{out}NNr0.tre`` instead
+  --ext         the external-memory build (``ops.extmem``): the serial
+                whole-file ``.dat`` path streamed in blocks, the edge list
+                never loaded; also taken under ``SHEEP_EXT_BLOCK`` or a
+                ``SHEEP_MEM_BUDGET`` the in-RAM load cannot fit
+  -k -e -j -w -x -m
+                the treewidth mode (``core.jxn``): the host insert with
+                kids/pst/jxn tables; with ``-i``/``-r`` the degree sort
+                runs on the card first
   --checkpoint-dir / --resume / --max-retries
                 the fault-tolerant build (``runtime.build_graph_resilient``;
-                the serial path's ladder is single -> host)
+                the serial path's ladder is single -> host); with
+                ``--ext`` the block checkpoints of the external-memory
+                build
   -p            partition: print it, or with ``-o`` write the
                 partitioned graph
 
+Only the routes that reach the card load torch: ``-i``/``-r`` and the
+serial ``--checkpoint-dir`` build.  Every other route (serial, ``-l``,
+``-p``, ``-s``, ``--ext``, the treewidth mode without ``-i``/``-r``)
+runs in a process that never imports it, as the reference's never
+imports jax: ``SHEEP_MEM_BUDGET`` routes by the headroom left over the
+process's RSS, so the two packages must price the same process.
+
 Routes that need a module the port has not ported yet raise SystemExit
 naming its ROADMAP.md queue item and never fall back to another route:
-the treewidth mode (``-k -e -j -w -x -m``), the external-memory build
-(``--ext``, ``SHEEP_EXT_BLOCK``, or a ``SHEEP_MEM_BUDGET`` the in-RAM load
-cannot fit), the distributed out-of-core build (``--distext``,
-``SHEEP_DISTEXT_LEGS`` >= 2), a mesh of more than one worker and a
-multi-host job (``SHEEP_COORDINATOR``).
+the distributed out-of-core build (``--distext``, ``SHEEP_DISTEXT_LEGS``
+>= 2, or a budget below the ext rung's floor block), a mesh of more than
+one worker and a multi-host job (``SHEEP_COORDINATOR``).
 
-``main(argv, device=None)``: ``device`` is where the -i/-r and checkpoint
-routes run; None means CUDA and raises without it.
+``main(argv, device=None)``: ``device`` is where the card routes run;
+None means CUDA and raises without it.
 """
 
 from __future__ import annotations
@@ -47,46 +62,15 @@ from ..core.validate import is_valid_forest
 from ..io.edges import EdgeList, load_edges, partial_range
 from ..io.seqfile import read_sequence, write_sequence
 from ..io.trefile import write_tree
-from ..ops.sort import degree_sequence_device
-from ..parallel.build import (build_graph_distributed, device_count,
-                              map_graph_distributed)
 from ..partition.partition import Partition
-from ..resources.governor import ResourceGovernor
-from ..runtime.driver import build_graph_resilient
+from ..resources.governor import (EXT_BLOCK_FLOOR, EXT_RECORD_BYTES,
+                                  ResourceGovernor, distext_forced_legs)
 from ..runtime.snapshot import input_signature
 from .common import (PhaseClock, graph_stats, maybe_init_distributed,
                      maybe_start_heartbeat, print_phase, print_tree,
                      runtime_config_from_opts)
 
 USAGE = "USAGE: graph2tree input_graph [options ...]"
-
-_REC_BYTES = 12            # one XS1 record
-_INRAM_RECORD_BYTES = 24   # tail/head arrays plus the mapped link pair
-_EXT_RECORD_BYTES = 64     # a streamed record's priced peak, ext rung
-_EXT_BLOCK_FLOOR = 1 << 14  # the ext rung's smallest block
-
-
-def _mem_headroom() -> int | None:
-    return ResourceGovernor.from_env().mem_headroom()
-
-
-def extmem_wanted(path: str) -> bool:
-    """Where the reference routes a build through its external-memory
-    rung (its ``ops.extmem.should_use_extmem``): a ``.dat`` file when
-    SHEEP_EXT_BLOCK is set, or when a memory budget cannot hold the
-    in-RAM load and prep (24 bytes a record)."""
-    if not path.endswith(".dat"):
-        return False
-    if os.environ.get("SHEEP_EXT_BLOCK", ""):
-        return True
-    head = _mem_headroom()
-    if head is None:
-        return False
-    try:
-        nbytes = os.path.getsize(path)
-    except OSError:
-        return False
-    return (nbytes // _REC_BYTES) * _INRAM_RECORD_BYTES > head
 
 
 def distext_wanted(path: str) -> bool:
@@ -96,16 +80,12 @@ def distext_wanted(path: str) -> bool:
     floor-sized block stream prices over the memory budget."""
     if not path.endswith(".dat"):
         return False
-    spec = os.environ.get("SHEEP_DISTEXT_LEGS", "")
-    legs = int(spec) if spec else 0
-    if legs < 0:
-        raise ValueError(f"SHEEP_DISTEXT_LEGS={legs} must be >= 0")
-    if legs >= 2:
+    if distext_forced_legs() >= 2:
         return True
-    head = _mem_headroom()
+    head = ResourceGovernor.from_env().mem_headroom()
     if head is None:
         return False
-    return _EXT_RECORD_BYTES * _EXT_BLOCK_FLOOR > head
+    return EXT_RECORD_BYTES * EXT_BLOCK_FLOOR > head
 
 
 def _tree_sig(seq) -> str:
@@ -114,6 +94,16 @@ def _tree_sig(seq) -> str:
     merge_trees can refuse a cross-build merge."""
     seq = np.asarray(seq, dtype=np.uint32)
     return input_signature(len(seq), seq)
+
+
+def _make_jopts(make_kids, make_pst, make_jxn, memory_limit, width_limit,
+                find_max_width):
+    from ..core.jxn import JxnOptions
+    return JxnOptions(make_kids=make_kids, make_pst=make_pst,
+                      make_jxn=make_jxn,
+                      memory_limit=memory_limit or (1 << 30),
+                      width_limit=width_limit,
+                      find_max_width=find_max_width)
 
 
 def _finish_sort(seq, use_mesh_sort, sequence_filename, clock):
@@ -153,8 +143,10 @@ def main(argv: list[str] | None = None, device=None) -> int:
     sequence_filename = ""
     output_filename = ""
     verbose = False
-    make_kids = make_pst = make_jxn = find_max_width = False
+    make_kids = make_pst = make_jxn = False
+    memory_limit = 0
     width_limit = 0
+    find_max_width = False
     do_faqs = do_print = do_validate = False
     use_ext = False
     use_distext = False
@@ -182,7 +174,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
         elif o == "-j":
             make_jxn = not make_jxn
         elif o == "-m":
-            int(a)  # the memory limit of the treewidth mode
+            memory_limit = int(a) * (1 << 20)
         elif o == "-w":
             width_limit = int(a)
         elif o == "-x":
@@ -205,19 +197,20 @@ def main(argv: list[str] | None = None, device=None) -> int:
 
     rt_cfg = runtime_config_from_opts(opts)
 
-    if make_kids or make_pst or make_jxn or width_limit or find_max_width:
-        raise SystemExit(f"graph2tree: -k/-e/-j/-w/-x/-m: the treewidth "
-                         f"mode {unported('jxn')}")
-
     clock = PhaseClock()
     use_mesh = use_mesh_sort or use_mesh_reduce
     if use_mesh:
         maybe_init_distributed()
 
-    # The reference's out-of-core routing, decided before the load: only
-    # the serial whole-file .dat path streams, and a request it cannot
-    # serve (-p, or distext without -o) falls back as it does there
-    if not use_mesh and not num_parts and graph_filename.endswith(".dat"):
+    jxn_mode = make_kids or make_pst or make_jxn or width_limit or \
+        find_max_width
+
+    # The reference's out-of-core routing, decided before the load (the
+    # edge list must never enter RAM): only the serial whole-file .dat
+    # path streams, and a request it cannot serve (-p with -o, or distext
+    # without -o) falls back as it does there
+    if not use_mesh and not jxn_mode and not num_parts \
+            and graph_filename.endswith(".dat"):
         if not use_distext:
             use_distext = distext_wanted(graph_filename)
         if use_distext and (partitions or not output_filename):
@@ -227,7 +220,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
                   "path", file=sys.stderr)
             use_distext = False
         if not use_ext and not use_distext:
-            use_ext = extmem_wanted(graph_filename)
+            from ..ops.extmem import should_use_extmem
+            use_ext = should_use_extmem(graph_filename)
         if use_ext and partitions and output_filename:
             print("warning: the external-memory build cannot write a "
                   "partitioned graph copy (the edge records never load); "
@@ -239,12 +233,10 @@ def main(argv: list[str] | None = None, device=None) -> int:
         raise SystemExit(f"graph2tree: the distributed out-of-core build "
                          f"(--distext, SHEEP_DISTEXT_LEGS or the memory "
                          f"budget) {unported('distext')}")
-    if use_ext:
-        raise SystemExit(f"graph2tree: the external-memory build (--ext, "
-                         f"SHEEP_EXT_BLOCK or a SHEEP_MEM_BUDGET the "
-                         f"in-RAM load cannot fit) {unported('extmem')}")
 
-    if use_mesh or rt_cfg is not None:
+    # the card routes: -i/-r, and the serial build under --checkpoint-dir
+    # (its single rung); everything else stays on the host without torch
+    if use_mesh or (rt_cfg is not None and not use_ext and not jxn_mode):
         device = resolve_device(device)
 
     is_leader = use_mesh or sequence_filename == ""
@@ -254,16 +246,44 @@ def main(argv: list[str] | None = None, device=None) -> int:
         print(f"warning: -l {part}/{num_parts} is superseded by -i/-r "
               f"(the mesh processes all records, like the reference's "
               f"MPI rank mapping); ignoring -l", file=sys.stderr)
-    edges = load_edges(graph_filename, part, num_parts) \
-        if not use_mesh else load_edges(graph_filename)
-    if verbose:
-        nodes, nedges = graph_stats(edges)
-        print(f"Nodes:{nodes} Edges:{nedges}")
+    if use_ext:
+        edges = None  # the stream IS the load; downstream guards on None
+    else:
+        edges = load_edges(graph_filename, part, num_parts) \
+            if not use_mesh else load_edges(graph_filename)
+        if verbose:
+            nodes, nedges = graph_stats(edges)
+            print(f"Nodes:{nodes} Edges:{nedges}")
     if is_leader:
         print_phase("Loaded graph", clock.phase_seconds())
 
+    widths = None
     map_only = False
-    if use_mesh:
+    if use_mesh and jxn_mode:
+        # the kids/pst/jxn tables are a host feature: with -i/-r the mode
+        # runs as the single-worker equivalent, the degree sort on the
+        # card, then the host parameterized insert (the reference's
+        # one-rank run with the same options)
+        from ..core.jxn import build_forest_jxn
+        from ..ops.sort import degree_sequence_device
+        if not use_mesh_sort and sequence_filename:
+            seq = read_sequence(sequence_filename)
+        else:
+            seq = degree_sequence_device(edges.tail, edges.head,
+                                         device=device)
+        _finish_sort(seq, use_mesh_sort, sequence_filename, clock)
+        jopts = _make_jopts(make_kids, make_pst, make_jxn, memory_limit,
+                            width_limit, find_max_width)
+        forest, seq, widths = build_forest_jxn(
+            edges.tail, edges.head, seq, jopts)
+        if is_leader:
+            print_phase("Mapped", clock.phase_seconds())
+            if use_mesh_reduce:
+                print_phase("Reduced", clock.phase_seconds())
+    elif use_mesh:
+        from ..ops.sort import degree_sequence_device
+        from ..parallel.build import (build_graph_distributed, device_count,
+                                      map_graph_distributed)
         count = device_count(device)
         workers = int(os.environ.get("SHEEP_WORKERS") or 0) or count
         mesh_workers = min(workers, count)
@@ -315,6 +335,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
             edges = EdgeList(edges.tail[a0:b0], edges.head[a0:b0],
                              file_edges=edges.file_edges, start=a0)
         elif rt_cfg is not None:
+            from ..runtime.driver import build_graph_resilient
             seq, forest = build_graph_resilient(
                 edges.tail, edges.head, num_workers=mesh_workers,
                 seq=given_seq, max_vid=edges.max_vid, config=rt_cfg,
@@ -332,6 +353,29 @@ def main(argv: list[str] | None = None, device=None) -> int:
             print_phase("Mapped", clock.phase_seconds())
             if use_mesh_reduce:
                 print_phase("Reduced", clock.phase_seconds())
+    elif use_ext:
+        # the out-of-core serial path: two streamed passes, no torch, no
+        # in-RAM edge list; the serial path's phase grammar
+        from ..ops.extmem import (build_forest_extmem,
+                                  streaming_degree_sequence)
+        ext_kw: dict = {}
+        if rt_cfg is not None:
+            ext_kw = dict(checkpoint_dir=rt_cfg.checkpoint_dir,
+                          resume=rt_cfg.resume,
+                          max_retries=rt_cfg.max_retries,
+                          backoff_base_s=rt_cfg.backoff_base_s,
+                          checkpoint_every=rt_cfg.checkpoint_every,
+                          integrity=rt_cfg.integrity,
+                          governor=rt_cfg.governor)
+        if sequence_filename:
+            seq = read_sequence(sequence_filename)
+        else:
+            seq, _, _ = streaming_degree_sequence(graph_filename)
+        if is_leader:
+            print_phase("Sorted", clock.phase_seconds())
+        seq, forest = build_forest_extmem(graph_filename, seq=seq, **ext_kw)
+        if is_leader:
+            print_phase("Mapped", clock.phase_seconds())
     else:
         if sequence_filename:
             seq = read_sequence(sequence_filename)
@@ -339,9 +383,16 @@ def main(argv: list[str] | None = None, device=None) -> int:
             seq = degree_sequence(edges.tail, edges.head)
         if is_leader:
             print_phase("Sorted", clock.phase_seconds())
-        if rt_cfg is not None:
+        if jxn_mode:
+            from ..core.jxn import build_forest_jxn
+            jopts = _make_jopts(make_kids, make_pst, make_jxn, memory_limit,
+                                width_limit, find_max_width)
+            forest, seq, widths = build_forest_jxn(
+                edges.tail, edges.head, seq, jopts)
+        elif rt_cfg is not None:
             # the serial path with fault tolerance: the single-chip chunk
             # loop under checkpoint/retry, degrading to the host oracle
+            from ..runtime.driver import build_graph_resilient
             serial_cfg = dataclasses.replace(
                 rt_cfg, ladder=("single", "host"))
             _, forest = build_graph_resilient(
@@ -353,7 +404,11 @@ def main(argv: list[str] | None = None, device=None) -> int:
         if is_leader:
             print_phase("Mapped", clock.phase_seconds())
 
-    max_vid = edges.max_vid
+    # under --ext the records never loaded; every vid with a record has
+    # nonzero degree and is therefore in the sequence, so seq.max() IS
+    # the file's max vid
+    max_vid = edges.max_vid if edges is not None else \
+        (int(np.asarray(seq).max()) if len(seq) else 0)
     if partitions != 0:
         p = Partition.from_forest(seq, forest, partitions, max_vid=max_vid)
         if output_filename:
@@ -369,12 +424,15 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if verbose:
         print_phase("Built", clock.total_seconds())
     if do_faqs:
-        compute_facts(forest).print()
+        compute_facts(forest, widths=widths).print()
     if do_print:
         print_tree(seq, forest.parent, forest.pst_weight)
     if do_validate:
-        if is_valid_forest(forest, edges.tail, edges.head, seq,
-                           max_vid=edges.max_vid):
+        if edges is None:
+            print("warning: -c needs the in-RAM edge list; skipped under "
+                  "the external-memory build", file=sys.stderr)
+        elif is_valid_forest(forest, edges.tail, edges.head, seq,
+                             max_vid=edges.max_vid):
             print("Tree is valid.")
         else:
             print("ERROR: Tree is not valid.")

@@ -1,10 +1,9 @@
 // sheep_native.cpp: the port's native host runtime, its own copy of the
-// reference's C++ host runtime (sheep_tpu/native/src/sheep_native.cpp)
-// without the treewidth insert (sheep_jxn_build), which the port has not
-// taken yet.  It replaces the port's earlier single-thread fold: one
-// library now holds the fold (plain, cache-blocked, threaded), the fused
-// degree sort, the edge-to-link map, the forward tree partition, FENNEL
-// and the streamed evaluator's block.
+// reference's C++ host runtime (sheep_tpu/native/src/sheep_native.cpp).
+// One library holds the fold (plain, cache-blocked, threaded), the fused
+// degree sort, the edge-to-link map, the treewidth mode's parameterized
+// insert (sheep_jxn_build), the forward tree partition, FENNEL and the
+// streamed evaluator's block.
 //
 // The reference implements these in C++ (lib/jtree.cpp insert loop,
 // lib/unionfind.h find/unify, lib/jnode.cpp merge, lib/partition.cpp
@@ -1426,6 +1425,228 @@ int64_t sheep_degree_sequence(const int64_t* deg, int64_t n,
   for (int64_t v = 0; v < n; ++v)
     if (deg[v] > 0) seq_out[offs[deg[v]]++] = (uint32_t)v;
   return total;
+}
+
+// Parameterized jxn/treewidth insert (lib/jtree.cpp:65-231) — the C++ twin
+// of core/jxn.py build_jxn_tree, returning the dense outputs the CLI needs
+// (parent, pst, effective seq, widths); the python oracle keeps the full
+// kids/pst/jxn tables.  Semantics replicated exactly:
+//   - per-edge postorder counting with width_limit fail-fast,
+//   - jxn = k-way union of kid jxns + unique postorder vids, minus X,
+//     failing when it exceeds width_limit (merge.h heuristic merges; here
+//     a heap-free repeated two-way merge with early abort),
+//   - failed vertices defer to wide_seq; find_max_width bound checks run
+//     on failed inserts too (jtree.cpp:130-136),
+//   - do_rooting stops when width == remaining; deferred + remaining
+//     vertices become the trivial tail chain (jtree.cpp:152-222),
+//   - pst/jxn item counts charge 4 bytes each against memory_limit.
+// flags bitmask: 1=make_pad 2=make_kids 4=make_pst 8=make_jxn
+//                16=find_max_width 32=do_rooting
+// Returns n_out (>=0), or -4 when memory_limit is exceeded.
+int64_t sheep_jxn_build(const uint32_t* tail, const uint32_t* head, int64_t m,
+                        const uint32_t* seq, int64_t seq_len, int64_t n_vid,
+                        int64_t width_limit, int64_t memory_limit,
+                        int64_t flags, uint32_t* parent_out,
+                        uint32_t* pst_out, uint32_t* seq_out,
+                        int64_t* widths_out) {
+  const bool make_pad = flags & 1;
+  const bool make_pst = flags & 4;
+  const bool make_jxn = flags & 8;
+  const bool find_max_width = flags & 16;
+  const bool do_rooting = flags & 32;
+  const uint64_t wlimit = width_limit > 0 ? (uint64_t)width_limit
+                                          : ~0ull >> 2;
+
+  // CSR (undirected doubled) via counting sort.
+  std::vector<int64_t> offs((size_t)n_vid + 1, 0);
+  for (int64_t i = 0; i < m; ++i) {
+    if (tail[i] >= (uint64_t)n_vid || head[i] >= (uint64_t)n_vid) return -3;
+    ++offs[tail[i] + 1];
+    ++offs[head[i] + 1];
+  }
+  for (int64_t v = 0; v < n_vid; ++v) offs[v + 1] += offs[v];
+  std::vector<uint32_t> dst((size_t)offs[n_vid]);
+  {
+    std::vector<int64_t> cur(offs.begin(), offs.end() - 1);
+    for (int64_t i = 0; i < m; ++i) {
+      dst[(size_t)cur[tail[i]]++] = head[i];
+      dst[(size_t)cur[head[i]]++] = tail[i];
+    }
+  }
+
+  std::vector<uint32_t> index((size_t)n_vid, kInvalid);
+  std::vector<uint32_t> uf;
+  std::vector<std::vector<uint32_t>> jxn_tbl;  // sorted; empty when !make_jxn
+  // stamp keys on a per-ATTEMPT counter, not the jnid: a failed insert
+  // leaves n_out unchanged, so jnid-keyed stamps would leak into the next
+  // vertex's root dedup.
+  std::vector<uint32_t> stamp((size_t)seq_len + 1, 0);
+  uint32_t attempt = 0;
+  std::vector<uint32_t> ks, pvids, jx, merged;
+  std::vector<uint32_t> wide_seq;
+  int64_t n_out = 0;
+  int64_t mem_used = 0;
+  uint64_t current_width = 0;
+  int64_t stopped_at = -1;
+
+  auto uf_find_local = [&](uint32_t x) {
+    while (uf[x] != x) {
+      uf[x] = uf[uf[x]];
+      x = uf[x];
+    }
+    return x;
+  };
+
+  for (int64_t si = 0; si < seq_len; ++si) {
+    const uint32_t X = seq[si];
+    if (X >= (uint64_t)n_vid) return -3;
+    if (!make_pad && offs[X + 1] == offs[X]) continue;
+    const uint32_t current = (uint32_t)n_out;
+    ++attempt;
+    uint64_t pw = 0;
+    bool fail = false;
+    ks.clear();
+    pvids.clear();
+    for (int64_t j = offs[X]; j < offs[X + 1]; ++j) {
+      const uint32_t nbr = dst[(size_t)j];
+      const uint32_t nid = index[nbr];
+      if (nid != kInvalid) {
+        uint32_t r = uf_find_local(nid);
+        if (stamp[r] != attempt) {  // met-root dedup (meetKid's check)
+          stamp[r] = attempt;
+          ks.push_back(r);
+        }
+      } else if (nbr != X) {
+        if (++pw > wlimit) { fail = true; break; }
+        pvids.push_back(nbr);
+      }
+    }
+    if (!fail) {
+      std::sort(pvids.begin(), pvids.end());
+      pvids.erase(std::unique(pvids.begin(), pvids.end()), pvids.end());
+      if (make_jxn) {
+        // union of kid jxns + pvids, minus X, early abort past wlimit
+        jx.assign(pvids.begin(), pvids.end());  // never contains X
+        for (uint32_t k : ks) {
+          if (jxn_tbl[k].empty()) continue;
+          merged.clear();
+          merged.reserve(jx.size() + jxn_tbl[k].size());
+          size_t a = 0, b = 0;
+          const auto& kb = jxn_tbl[k];
+          while (a < jx.size() || b < kb.size()) {
+            uint32_t v;
+            if (b >= kb.size() || (a < jx.size() && jx[a] <= kb[b])) {
+              v = jx[a++];
+              if (b < kb.size() && kb[b] == v) ++b;
+            } else {
+              v = kb[b++];
+            }
+            if (v == X) continue;
+            merged.push_back(v);
+            if (merged.size() > wlimit) { fail = true; break; }
+          }
+          if (fail) break;
+          jx.swap(merged);
+        }
+      }
+    }
+    if (fail) {
+      // find_max_width bound check runs on failed inserts too
+      if (find_max_width &&
+          current_width >= wide_seq.size() + (uint64_t)(seq_len - si))
+        return n_out;
+      wide_seq.push_back(X);
+      continue;
+    }
+
+    // Commit
+    parent_out[n_out] = kInvalid;
+    pst_out[n_out] = (uint32_t)pw;
+    seq_out[n_out] = X;
+    uf.push_back(current);
+    for (uint32_t r : ks) {
+      parent_out[r] = current;
+      uf[r] = current;
+    }
+    if (make_pst) {
+      mem_used += 4 * (int64_t)pvids.size();
+      if (mem_used > memory_limit) return -4;
+    }
+    if (make_jxn) {
+      mem_used += 4 * (int64_t)jx.size();
+      if (mem_used > memory_limit) return -4;
+      jxn_tbl.emplace_back(jx);
+    } else {
+      jxn_tbl.emplace_back();
+    }
+    const uint64_t cur_w = 1 + (make_jxn ? jx.size() : pw);
+    widths_out[n_out] = (int64_t)cur_w;
+    index[X] = current;
+    ++n_out;
+
+    const uint64_t remaining = wide_seq.size() + (uint64_t)(seq_len - si);
+    if (find_max_width) {
+      if (cur_w > current_width) current_width = cur_w;
+      if (current_width >= remaining) return n_out;
+    }
+    if (do_rooting && cur_w == remaining) {
+      stopped_at = si + 1;
+      break;
+    }
+  }
+
+  // Tail phase: deferred + unvisited vertices become a root chain.
+  std::vector<uint32_t> rest(wide_seq);
+  if (stopped_at >= 0)
+    for (int64_t si = stopped_at; si < seq_len; ++si)
+      rest.push_back(seq[si]);
+  for (size_t ti = 0; ti < rest.size(); ++ti) {
+    const uint32_t X = rest[ti];
+    const uint32_t current = (uint32_t)n_out;
+    parent_out[n_out] = kInvalid;
+    seq_out[n_out] = X;
+    uf.push_back(current);
+    if (ti == 0) {
+      for (uint32_t kid = 0; kid < current; ++kid)
+        if (parent_out[kid] == kInvalid) {
+          parent_out[kid] = current;
+          uf[kid] = current;
+        }
+    } else {
+      parent_out[current - 1] = current;
+      uf[current - 1] = current;
+    }
+    uint64_t pw = 0;
+    uint64_t upw = 0;  // unique postorder vids (pst table accounting)
+    pvids.clear();
+    for (int64_t j = offs[X]; j < offs[X + 1]; ++j) {
+      const uint32_t nbr = dst[(size_t)j];
+      if (index[nbr] == kInvalid && nbr != X) {
+        ++pw;
+        pvids.push_back(nbr);
+      }
+    }
+    std::sort(pvids.begin(), pvids.end());
+    pvids.erase(std::unique(pvids.begin(), pvids.end()), pvids.end());
+    upw = pvids.size();
+    pst_out[n_out] = (uint32_t)pw;
+    if (make_pst) {
+      mem_used += 4 * (int64_t)upw;
+      if (mem_used > memory_limit) return -4;
+    }
+    const uint64_t jx_len = rest.size() - ti - 1;
+    if (make_jxn) {
+      mem_used += 4 * (int64_t)jx_len;
+      if (mem_used > memory_limit) return -4;
+      widths_out[n_out] = (int64_t)(1 + jx_len);
+    } else {
+      widths_out[n_out] = (int64_t)(1 + pw);
+    }
+    index[X] = current;
+    ++n_out;
+    if (ti == 0 && find_max_width) return n_out;
+  }
+  return n_out;
 }
 
 // Fennel greedy streaming vertex partitioner (lib/partition.cpp:282-329).

@@ -298,8 +298,10 @@ def iter_dat_blocks(path: str, block_edges: int, part: int = 0,
                     f"mid-stream?)")
             if sc is not None and whole:
                 crc = crc_update(rec.tobytes(), crc, sc["algo"])
-            yield np.ascontiguousarray(rec["tail"]), \
-                np.ascontiguousarray(rec["head"])
+            tail = np.ascontiguousarray(rec["tail"])
+            head = np.ascontiguousarray(rec["head"])
+            del rec  # the raw records go before the block is handed out
+            yield tail, head
     if sc is not None and whole:
         # trailing torn bytes (if any) are part of the recorded sum
         tail_bytes = nbytes - num_records * _XS1_DTYPE.itemsize

@@ -1,12 +1,13 @@
 """ctypes binding of the port's native host runtime
 (``csrc/sheep_native.cpp``, the port's copy of the reference's
-``sheep_tpu/native/src/sheep_native.cpp`` without ``sheep_jxn_build``),
-built with g++ at first use into ``_build/libsheep_torch_native.so``.
+``sheep_tpu/native/src/sheep_native.cpp``), built with g++ at first use
+into ``_build/libsheep_torch_native.so``.
 
 The library holds the elimination-forest fold (monolithic, resumable,
 fused from edges; plain, cache-blocked and OpenMP-threaded), the degree
-histogram and the fused degree sort, the edge-to-link map, the forward
-tree partition, FENNEL and the streamed evaluator's block.  Its own name
+histogram and the fused degree sort, the edge-to-link map, the treewidth
+mode's parameterized insert, the forward tree partition, FENNEL and the
+streamed evaluator's block.  Its own name
 and path keep it apart from the reference's ``libsheep_native.so`` when
 both load in one process (ctypes loads with ``RTLD_LOCAL``).
 
@@ -113,6 +114,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sheep_degree_sequence_edges.restype = ctypes.c_int64
     lib.sheep_degree_sequence_edges.argtypes = [
         _u32p, _u32p, ctypes.c_int64, ctypes.c_int64, _u32p]
+    lib.sheep_jxn_build.restype = ctypes.c_int64
+    lib.sheep_jxn_build.argtypes = [
+        _u32p, _u32p, ctypes.c_int64, _u32p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _u32p, _u32p, _u32p, _i64p]
     lib.sheep_fennel_vertex.restype = ctypes.c_int
     lib.sheep_fennel_vertex.argtypes = [
         _u32p, _u32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -407,6 +413,38 @@ def degree_histogram_acc(tail: np.ndarray, head: np.ndarray,
         if _threads_live():
             _annotate_threads(sp)
     _histogram_rc(rc, len(deg), "sheep_degree_histogram_acc")
+
+
+def jxn_build(tail: np.ndarray, head: np.ndarray, seq: np.ndarray,
+              n_vid: int, width_limit: int, memory_limit: int,
+              make_pad: bool, make_pst: bool, make_jxn: bool,
+              find_max_width: bool, do_rooting: bool):
+    """Native parameterized jxn insert (sheep_jxn_build).
+
+    Returns (parent, pst, out_seq, widths) trimmed to the effective node
+    count.  Raises MemoryError past memory_limit (rc -4) like the oracle,
+    and ValueError on any other failure (rc < 0: a vid out of range)."""
+    lib = load_library()
+    tail, head, seq = _u32(tail), _u32(head), _u32(seq)
+    cap = len(seq)
+    parent = np.empty(cap, dtype=np.uint32)
+    pst = np.empty(cap, dtype=np.uint32)
+    out_seq = np.empty(cap, dtype=np.uint32)
+    widths = np.empty(cap, dtype=np.int64)
+    flags = (1 * make_pad) | (4 * make_pst) | (8 * make_jxn) | \
+        (16 * find_max_width) | (32 * do_rooting)
+    with _obs.span("native.jxn_build", records=len(tail), n=cap):
+        n_out = lib.sheep_jxn_build(tail, head, len(tail), seq, cap, n_vid,
+                                    width_limit, memory_limit, flags,
+                                    parent, pst, out_seq, widths)
+    if n_out == -4:
+        raise MemoryError(
+            f"pst/jxn tables exceed memory_limit={memory_limit}")
+    if n_out < 0:
+        raise ValueError(f"sheep_jxn_build failed rc={n_out}")
+    k = int(n_out)
+    return (parent[:k].copy(), pst[:k].copy(), out_seq[:k].copy(),
+            widths[:k].copy())
 
 
 def fennel_vertex(tail: np.ndarray, head: np.ndarray, n_vid: int,

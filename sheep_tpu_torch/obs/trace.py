@@ -433,6 +433,20 @@ def close_recorder() -> None:
         old.close()  # outside the lock, same reason as _current
 
 
+def overlap_stats(serialized_s: float, wall_s: float) -> dict:
+    """Realized overlap of phases that ran concurrently: ``serialized_s``
+    is what the phases cost summed as if serial, ``wall_s`` what the
+    clock actually saw.  Returns {"overlap_s", "overlap_frac"} rounded
+    the way every record publishes them (the external-memory build's
+    read/fold overlap)."""
+    overlap = max(0.0, serialized_s - wall_s)
+    return {
+        "overlap_s": round(overlap, 4),
+        "overlap_frac": round(overlap / serialized_s, 4)
+        if serialized_s > 0 else 0.0,
+    }
+
+
 # -- read side (sheep trace / fsck) ---------------------------------------
 
 

@@ -1,36 +1,47 @@
-"""The build planner (port of sheep_tpu/plan/model.py: ``available_rungs``
-and the part of ``plan_build`` the fault-tolerant build driver reads).
+"""The build planner (port of sheep_tpu/plan/model.py: the Plan object,
+its cost model and ``plan_build``, which the fault-tolerant build driver
+and the ``plan`` tool read).
 
 One :func:`plan_build` call per build resolves
 
   the execution path   the kept rung order (availability x priced
                        feasibility), first kept = the rung that runs
   native threads T     resources.governor.native_thread_plan
+  ext/spill block      the governor's fitted ext block, prior-corrected
+  handoff windows W    the streamed-tail window policy
+  distext legs N       resources.governor.distext_leg_plan
+  jump depth / chunking  the lifting-table cap + chunk-loop gates
 
 and records each as a :class:`Decision` carrying its **provenance**:
 
   ``default``   nothing overrode the built-in policy
   ``priced``    the governor's ANALYTIC cost model changed it (a rung
-                skipped, a thread count vetoed)
-  ``learned``   a measured prior (plan/priors.py) CORRECTED the analytic
-                answer
+                skipped, a block halved, a thread count vetoed)
+  ``learned``   a measured prior (plan/priors.py — past ``ladder.plan``
+                traces, bench records) CORRECTED the analytic answer
   ``forced``    an explicit ``SHEEP_*`` knob or caller argument pinned
                 it — the operator's word, never second-guessed
 
 With no prior store configured, every decision is the governor's
 analytic answer.  Priors correct only the MEMORY side (keep/skip
-verdicts); measured seconds never reorder the ladder — rung order
-encodes correctness/availability constraints the clock knows nothing
-about.  The reference's ext-block, handoff-window, depth, chunk-gate and
-distext decisions come with the slices that run them.
+verdicts, block fitting); measured seconds are reported beside each
+candidate in ``plan --explain`` but never reorder the ladder — rung
+order encodes correctness/availability constraints the clock knows
+nothing about.  The reference's transport, migration, re-sequence and
+scrub pricing come with the serving tier that reads them.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
-from ..resources.governor import (NATIVE_THREADS_ENV, ResourceGovernor,
-                                  native_thread_plan, rung_peak_nbytes)
+from ..resources.governor import (EXT_BLOCK_ENV, EXT_BLOCK_FLOOR,
+                                  EXT_RECORD_BYTES, NATIVE_THREADS_ENV,
+                                  SPILL_BLOCK, ResourceGovernor,
+                                  distext_forced_legs, distext_leg_plan,
+                                  ext_block_edges, native_thread_plan,
+                                  rung_peak_nbytes)
 from .priors import PriorStore, mem_ratio
 
 PROV_DEFAULT = "default"
@@ -80,25 +91,120 @@ class Plan:
     decisions: dict[str, Decision] = field(default_factory=dict)
     native_threads: dict = field(default_factory=dict)
     headroom_bytes: int | None = None
+    budget_bytes: int | None = None
+    rss: int | None = None
+
+    @property
+    def chosen(self) -> str:
+        return self.rungs[0] if self.rungs else "?"
+
+    def decision(self, name: str) -> Decision:
+        return self.decisions[name]
 
     def decisions_dict(self) -> list[dict]:
         return [d.to_dict() for d in self.decisions.values()]
 
+    def corrections(self) -> list[Decision]:
+        """The decisions history actually changed (provenance learned)."""
+        return [d for d in self.decisions.values()
+                if d.provenance == PROV_LEARNED]
+
+    def to_dict(self) -> dict:
+        return {
+            "n": self.n, "links": self.links,
+            "rungs": list(self.rungs), "chosen": self.chosen,
+            "candidates": [dict(c) for c in self.candidates],
+            "decisions": self.decisions_dict(),
+            "headroom_bytes": self.headroom_bytes,
+            "budget_bytes": self.budget_bytes,
+        }
+
+    def explain(self) -> list[str]:
+        """The --explain text: chosen rung, candidate costs (priced vs
+        historical), and each decision with its provenance."""
+        def fb(x):
+            if x is None:
+                return "-"
+            x = float(x)
+            for unit, shift in (("G", 30), ("M", 20), ("K", 10)):
+                if abs(x) >= (1 << shift):
+                    return f"{x / (1 << shift):.1f}{unit}"
+            return f"{int(x)}B"
+
+        lines = [f"plan: n={self.n} links={self.links}"
+                 + (f"  budget={fb(self.budget_bytes)} "
+                    f"headroom={fb(self.headroom_bytes)}"
+                    if self.budget_bytes is not None
+                    else "  (unbudgeted)")]
+        lines.append(f"chosen rung: {self.chosen}"
+                     f"  (ladder {' -> '.join(self.rungs) or '-'})")
+        head = (f"  {'RUNG':<8} {'PRICED':>9} {'LEARNED':>9} "
+                f"{'HISTORY':>10} VERDICT")
+        lines += ["candidates", head]
+        for c in self.candidates:
+            hist = c.get("prior_s")
+            hist_s = f"{hist['mean']:.2f}s*{hist['count']}" if hist else "-"
+            corrected = c.get("corrected_bytes")
+            lines.append(
+                f"  {c['rung']:<8} {fb(c.get('est_bytes')):>9} "
+                f"{(fb(corrected) if corrected is not None else '-'):>9} "
+                f"{hist_s:>10} {c['verdict']}"
+                + (f"  [prior {c['prior']['key']} x{c['prior']['mean']:.2f}]"
+                   if c.get("prior") else ""))
+        lines.append("decisions")
+        for d in self.decisions.values():
+            line = f"  {d.name:<16} = {d.value!r:<12} [{d.provenance}]"
+            if d.knob:
+                line += f" knob {d.knob}"
+            if d.provenance == PROV_LEARNED and d.analytic is not None:
+                line += f"  (analytic said {d.analytic!r}"
+                if d.prior:
+                    line += (f"; corrected by prior {d.prior['key']} "
+                             f"mean x{d.prior['mean']:.2f} "
+                             f"over {d.prior['count']} run(s)")
+                line += ")"
+            elif d.reason:
+                line += f"  ({d.reason})"
+            lines.append(line)
+        for d in self.corrections():
+            lines.append(f"history corrected: {d.name} {d.analytic!r} -> "
+                         f"{d.value!r} via {d.prior['key'] if d.prior else '?'}")
+        return lines
+
 
 def available_rungs(ladder=DEFAULT_LADDER, devices: int | None = None,
                     num_workers: int | None = None,
+                    edges_path: str | None = None,
                     known=None) -> list[str]:
     """Availability filter (the driver's pre-plan step): drop mesh
-    without >= 2 devices/workers, and drop ext, which the port does not
-    run yet (the reference keeps it only with a whole-input .dat).  Pure
-    function of its arguments — the driver passes the live device count
-    and its registered rung set (tests install synthetic rungs)."""
+    without >= 2 devices/workers, drop ext without a whole-input .dat.
+    Pure function of its arguments — the driver passes the live device
+    count (and its registered rung set: tests install synthetic rungs),
+    the CLI passes what it knows."""
     known = set(DEFAULT_LADDER) if known is None else set(known)
-    rungs = [r for r in ladder if r in known and r != "ext"]
+    rungs = [r for r in ladder if r in known]
     if (devices is not None and devices < 2) \
             or (num_workers is not None and num_workers < 2):
         rungs = [r for r in rungs if r != "mesh"]
+    if not (edges_path and edges_path.endswith(".dat")
+            and os.path.exists(edges_path)):
+        rungs = [r for r in rungs if r != "ext"]
     return rungs or ["host"]
+
+
+def _fit_ext_block(n: int, head: int | None, ratio: float) -> int:
+    """The governor's ext-block fitting loop (ext_fitted_block) with a
+    measured-prior correction factor on the priced peak.  ratio=1.0
+    reproduces the analytic fit bit for bit."""
+    block = ext_block_edges()
+    if os.environ.get(EXT_BLOCK_ENV, ""):
+        return block  # pinned: the operator's word, resume identity
+    if head is None:
+        return block
+    while block > EXT_BLOCK_FLOOR \
+            and ratio * (32 * n + EXT_RECORD_BYTES * block) > head:
+        block //= 2
+    return block
 
 
 def plan_build(n: int, links: int, *,
@@ -107,18 +213,24 @@ def plan_build(n: int, links: int, *,
                governor: ResourceGovernor | None = None,
                num_workers: int | None = None,
                devices: int | None = None,
+               edges_path: str | None = None,
                priors: PriorStore | None = None,
-               assume_rss: int | None = None) -> Plan:
+               platform: str = "cpu",
+               assume_rss: int | None = None,
+               with_distext: bool = False) -> Plan:
     """Resolve one build's plan.  ``rungs`` (already availability- and
     resume-filtered) skips the filter; ``priors`` defaults to the
     ``SHEEP_PLAN_PRIORS`` store (None when unset — pure analytic);
     ``assume_rss`` pins the measured-RSS input so a plan can be
-    reproduced deterministically."""
+    reproduced deterministically (the CLI's --assume-rss).  ``platform``
+    is the build's device type ("cuda" or "cpu"), which sets the
+    handoff-window default as ``device.type`` does in ops/build.py."""
     gov = governor if governor is not None else ResourceGovernor.from_env()
     if priors is None:
         priors = PriorStore.from_env()
     if rungs is None:
-        rungs = available_rungs(ladder, devices, num_workers)
+        rungs = available_rungs(ladder, devices, num_workers, edges_path)
+    rss = assume_rss if assume_rss is not None else None
     if assume_rss is not None:
         head = gov.mem_budget - assume_rss \
             if gov.mem_budget is not None else None
@@ -143,8 +255,29 @@ def plan_build(n: int, links: int, *,
         "native_threads", t, t_prov, knob=NATIVE_THREADS_ENV,
         reason=tplan["reason"])
 
-    # -- rung pricing: each rung's analytic peak (rung_peak_nbytes)
-    # against the headroom, prior-corrected.
+    # -- ext block: analytic fit vs prior-corrected fit
+    ext_prior = mem_ratio(priors, "ext", n)
+    analytic_block = _fit_ext_block(n, head, 1.0)
+    block = _fit_ext_block(n, head, ext_prior["mean"]) if ext_prior \
+        else analytic_block
+    if os.environ.get(EXT_BLOCK_ENV, ""):
+        b_prov, b_reason = PROV_FORCED, f"pinned by {EXT_BLOCK_ENV}"
+    elif ext_prior and block != analytic_block:
+        b_prov = PROV_LEARNED
+        b_reason = (f"measured rss ran x{ext_prior['mean']:.2f} the "
+                    f"analytic price on this host")
+    elif block != ext_block_edges():
+        b_prov = PROV_PRICED
+        b_reason = "halved to the memory headroom"
+    else:
+        b_prov, b_reason = PROV_DEFAULT, ""
+    decisions["ext_block"] = Decision(
+        "ext_block", block, b_prov, knob=EXT_BLOCK_ENV,
+        analytic=analytic_block,
+        prior=ext_prior if b_prov == PROV_LEARNED else None,
+        reason=b_reason)
+
+    # -- rung pricing: the governor's plan_rungs loop, prior-corrected.
     # The last rung always survives (something must run).
     candidates: list[dict] = []
     kept: list[str] = []
@@ -153,7 +286,9 @@ def plan_build(n: int, links: int, *,
     for i, rung in enumerate(rungs):
         try:
             est = rung_peak_nbytes(
-                rung, n, links, num_workers or 1, threads=t)
+                rung, n, links, num_workers or 1,
+                ext_block=block if rung == "ext" else None,
+                threads=t)
         except ValueError:
             # a rung the cost model does not know (tests install
             # synthetic rungs): unpriceable, never skipped
@@ -168,6 +303,9 @@ def plan_build(n: int, links: int, *,
         if corrected is not None:
             cand["corrected_bytes"] = corrected
             cand["prior"] = prior
+        ps = priors.lookup("rung_s", rung, links) if priors else None
+        if ps:
+            cand["prior_s"] = ps
         if head is not None and effective > head and i < len(rungs) - 1:
             cand["verdict"] = "skip"
             any_skip = True
@@ -199,6 +337,61 @@ def plan_build(n: int, links: int, *,
                     if c.get("prior") and r_prov == PROV_LEARNED), None),
         reason=r_reason)
 
+    # -- handoff windows (ops/build.handoff_windows policy, torch-free)
+    wv = os.environ.get("SHEEP_HANDOFF_WINDOWS", "")
+    if wv != "":
+        w, w_prov = max(1, int(wv)), PROV_FORCED
+    elif platform == "cpu":
+        w, w_prov = 1, PROV_DEFAULT
+    else:
+        w, w_prov = (4 if links >= (1 << 20) else 1), PROV_DEFAULT
+    decisions["handoff_windows"] = Decision(
+        "handoff_windows", w, w_prov, knob="SHEEP_HANDOFF_WINDOWS")
+
+    # -- jump-table depth cap (the chunk drivers' lv ceiling)
+    levels = gov.shrunk_levels(10, n) if gov.active else 10
+    decisions["levels"] = Decision(
+        "levels", levels,
+        PROV_PRICED if levels < 10 else PROV_DEFAULT, knob=None,
+        analytic=10,
+        reason="jump tables shrunk to headroom" if levels < 10 else "")
+
+    # -- chunk-loop gates (recorded overrides; the loops read them live)
+    for name, knob, dflt in (("pipeline_chunks", "SHEEP_PIPELINE_CHUNKS",
+                              "1"),
+                             ("plateau_adapt", "SHEEP_PLATEAU_ADAPT",
+                              "1")):
+        v = os.environ.get(knob, "")
+        decisions[name] = Decision(
+            name, (v or dflt) != "0",
+            PROV_FORCED if v != "" else PROV_DEFAULT, knob=knob)
+
+    # -- spill block (compile-time constant today; recorded so --explain
+    # shows the whole surface)
+    decisions["spill_block"] = Decision(
+        "spill_block", SPILL_BLOCK, PROV_DEFAULT, knob=None)
+
+    # -- distext legs (only meaningful with a whole-input file, but the
+    # decision is cheap and the provenance story should be complete)
+    if with_distext or distext_forced_legs():
+        forced_legs = distext_forced_legs()
+        dplan = distext_leg_plan(n, gov)
+        if forced_legs:
+            d_prov, d_reason = PROV_FORCED, "pinned by SHEEP_DISTEXT_LEGS"
+        else:
+            free = distext_leg_plan(
+                n, ResourceGovernor(mem_budget=None,
+                                    disk_budget=gov.disk_budget,
+                                    scratch_dir=gov.scratch_dir))
+            d_prov = PROV_PRICED if dplan["legs"] < free["legs"] \
+                else PROV_DEFAULT
+            d_reason = ("cut to the aggregate per-leg budget"
+                        if d_prov == PROV_PRICED else "")
+        decisions["distext_legs"] = Decision(
+            "distext_legs", dplan["legs"], d_prov,
+            knob="SHEEP_DISTEXT_LEGS", reason=d_reason)
+
     return Plan(n=n, links=links, rungs=kept, candidates=candidates,
                 decisions=decisions, native_threads=dict(tplan),
-                headroom_bytes=head)
+                headroom_bytes=head, budget_bytes=gov.mem_budget,
+                rss=rss)

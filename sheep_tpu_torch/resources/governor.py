@@ -44,6 +44,8 @@ DISK_BUDGET_ENV = "SHEEP_DISK_BUDGET"
 SCRATCH_DIR_ENV = "SHEEP_SCRATCH_DIR"
 LEG_CORES_ENV = "SHEEP_LEG_CORES"
 NATIVE_THREADS_ENV = "SHEEP_NATIVE_THREADS"
+EXT_BLOCK_ENV = "SHEEP_EXT_BLOCK"
+DISTEXT_LEGS_ENV = "SHEEP_DISTEXT_LEGS"
 
 #: free space a preflighted write must leave behind (the filesystem needs
 #: breathing room for directory blocks, the sidecar, and the journal; a
@@ -166,6 +168,7 @@ def native_thread_tables_nbytes(n: int, threads: int) -> int:
 
 def rung_peak_nbytes(rung: str, n: int, links: int,
                      workers: int = 1, levels: int = 10,
+                     ext_block: int | None = None,
                      threads: int = 1) -> int:
     """Rough peak resident bytes of one degradation-ladder rung
     (runtime/driver.py) reducing ``links`` live links over ``n``
@@ -184,6 +187,16 @@ def rung_peak_nbytes(rung: str, n: int, links: int,
                    mask (~5 bytes/link) — the int32 input table itself
                    is the caller's.  Sits between host (16 bytes/link
                    cast) and spill (which pays a scratch file).
+      ext          the external-memory rung: the edge list never
+                   loads — the priced peak is the O(n) fold state
+                   (uf/parent/pst, 12n) + the vid->position table (4n) +
+                   the int64 carry pair (<= 16n) + the prefetch queue's
+                   raw record blocks ((EXT_PREFETCH + 1) * 8n uint32
+                   pairs per block of ext_block_edges()) + one block's
+                   transient int64 mapping (16 bytes/edge).  NO links
+                   term at all: for beyond-RAM inputs it prices between
+                   stream (which holds the whole int32 table) and spill
+                   (which holds nothing but one fold block).
       spill        links live in a memory-mapped scratch file; resident
                    state is the union-find fold's O(n) arrays plus one
                    block of links (SPILL_BLOCK) and the carry (<= n
@@ -191,7 +204,7 @@ def rung_peak_nbytes(rung: str, n: int, links: int,
 
     ``threads`` > 1 adds the threaded native kernels' per-thread partial
     tables (:func:`native_thread_tables_nbytes`) to the rungs
-    that run through the native fold — host, stream, spill — so a
+    that run through the native fold — host, stream, ext, spill — so a
     budget that fits the serial build but not T partial tables vetoes
     the thread count, not the rung.
     """
@@ -205,6 +218,9 @@ def rung_peak_nbytes(rung: str, n: int, links: int,
         return 16 * links + 8 * n + 8 * n + tthreads
     if rung == "stream":
         return 12 * n + 8 * min(links, SPILL_BLOCK) + 5 * links + tthreads
+    if rung == "ext":
+        block = ext_block if ext_block is not None else ext_block_edges()
+        return 32 * n + EXT_RECORD_BYTES * block + tthreads
     if rung == "spill":
         return 8 * SPILL_BLOCK + 16 * n + 8 * n + tthreads
     raise ValueError(f"unknown rung {rung!r}")
@@ -214,6 +230,120 @@ def rung_peak_nbytes(rung: str, n: int, links: int,
 #: links = 32MB resident — small against any realistic budget, large
 #: enough that the per-block union-find amortizes.
 SPILL_BLOCK = 1 << 22
+
+
+#: edge records per streamed block of the external-memory build
+#: (SHEEP_EXT_BLOCK overrides): 512K records = 6MB raw on disk, ~4MB as
+#: the prefetched uint32 pair — with the double-buffered prefetch queue
+#: the in-flight data stays small enough that ext prices under the
+#: stream rung for any beyond-RAM link count, large enough that the
+#: fused per-block kernel amortizes its O(n) merge passes.
+EXT_BLOCK_DEFAULT = 1 << 19
+
+#: priced in-flight bytes per record of one ext block: the raw 12-byte
+#: read buffer + the (prefetch-depth + 1) uint32 pairs + the transient
+#: int64/uint32 mapping of the block being folded, rounded UP (measured
+#: ~44-98 B/record across both passes on the bench host) — over-pricing
+#: degrades earlier, which is the safe direction (module docstring).
+EXT_RECORD_BYTES = 64
+
+#: blocks the ext prefetcher keeps in flight beyond the one being folded
+#: (io/prefetch.py double buffering: fold k while k+1 is resident and k+2
+#: streams off the disk)
+EXT_PREFETCH = 2
+
+
+def ext_block_edges() -> int:
+    """The ext rung's block size in EDGE RECORDS (``SHEEP_EXT_BLOCK``
+    overrides; accepts a bare count or a human size like ``2M`` = 2^21
+    records — the binary-suffix grammar of the budgets, applied to
+    records).  Floor 1: a zero/empty override must not turn the stream
+    into an infinite loop."""
+    spec = os.environ.get(EXT_BLOCK_ENV, "")
+    if not spec:
+        return EXT_BLOCK_DEFAULT
+    return max(1, parse_size(spec) or EXT_BLOCK_DEFAULT)
+
+
+def ext_strategy_costs(n: int, carry_links: int, block_records: int) -> dict:
+    """Priced bytes-touched estimates of the two per-block fold strategies
+    of the external-memory build (ops/extmem.py), used to pick per block:
+
+      edges  the fused native records->forest kernel builds a PER-BLOCK
+             forest (its internal uint32 map pass touches ~12 bytes per
+             record), then the carry merge replays (carry + <= n block
+             forest links) through one fold: + 8 bytes per merge link.
+      links  the block maps host-side to int64 position pairs (~24 bytes
+             per record incl. the fold's own read) and folds WITH the
+             carry in one pass: + 8 bytes per carry link, no second
+             O(n) merge.
+
+    The crossover is block ~ 2n/3: big blocks amortize the edges
+    strategy's extra O(n) merge, small blocks (the carry-dominated tail
+    of a stream, or a tiny SHEEP_EXT_BLOCK) don't.  Deliberately coarse
+    (module docstring): both strategies are exact, so a mispriced pick
+    costs time, never correctness.
+    """
+    return {
+        "edges": 12 * block_records + 8 * (carry_links + n),
+        "links": 24 * block_records + 8 * carry_links,
+    }
+
+
+#: the ext rung's block floor (ext_fitted_block): below this the
+#: per-block O(n) merge swamps the stream, so a budget that cannot hold
+#: even this block has no single-process out-of-core path left
+EXT_BLOCK_FLOOR = 1 << 14
+
+
+def distext_forced_legs() -> int:
+    """The operator-pinned leg count of the distributed out-of-core
+    build (``SHEEP_DISTEXT_LEGS``); 0 = unset (the planner picks)."""
+    spec = os.environ.get(DISTEXT_LEGS_ENV, "")
+    if not spec:
+        return 0
+    legs = int(spec)
+    if legs < 0:
+        raise ValueError(f"{DISTEXT_LEGS_ENV}={legs} must be >= 0")
+    return legs
+
+
+def distext_leg_plan(n: int = 0, governor: "ResourceGovernor | None" = None
+                     ) -> dict:
+    """The distext planner's ARITHMETIC: how many supervised ext legs to
+    shard a ``.dat`` across, and what one leg's priced peak is.  The
+    build planner (plan/model.py) records it as the ``distext_legs``
+    decision; the distributed out-of-core build that runs the legs waits
+    for its port (ROADMAP.md §1).
+
+    ``SHEEP_DISTEXT_LEGS`` pins N (the operator's word).  Otherwise N
+    starts at the host's concurrency budget — ``host_cores //
+    SHEEP_LEG_CORES`` (the same arithmetic the supervisor throttles
+    attempts with), floor 2 so a distext request always shards — and is
+    then cut while the AGGREGATE of per-leg peaks (the ext formula at
+    the leg's fitted block; each leg is its own process under its own
+    ``SHEEP_MEM_BUDGET``, but they run concurrently on one host) cannot
+    fit the configured budget.  Returns
+    ``{"legs", "per_leg_peak_bytes", "block_edges", "forced"}``."""
+    gov = governor if governor is not None else ResourceGovernor.from_env()
+    block = gov.ext_fitted_block(n)
+    per_leg = rung_peak_nbytes("ext", n, 0, ext_block=block)
+    forced = distext_forced_legs()
+    if forced:
+        return {"legs": forced, "per_leg_peak_bytes": per_leg,
+                "block_edges": block, "forced": True}
+    leg_cores = int(os.environ.get(LEG_CORES_ENV, "0") or 0)
+    # quota-aware: a container limited to q cpu-seconds/second
+    # reports every host core in the affinity mask — sizing legs off that
+    # number just time-shares the quota (utils/envinfo.effective_cores)
+    from ..utils.envinfo import effective_cores
+    host = effective_cores()
+    legs = max(2, host // max(1, leg_cores))
+    budget = gov.mem_budget
+    while legs > 2 and budget is not None and legs * per_leg > budget:
+        legs -= 1
+    return {"legs": legs, "per_leg_peak_bytes": per_leg,
+            "block_edges": block, "forced": False}
 
 
 def native_thread_plan(n: int, governor: "ResourceGovernor | None" = None
@@ -326,6 +456,101 @@ class ResourceGovernor:
                 f"{max(0, head) >> 20}MB of the "
                 f"{self.mem_budget >> 20}MB memory budget remains "
                 f"(rss {rss_bytes() >> 20}MB)")
+
+    def shrunk_levels(self, levels: int, n: int) -> int:
+        """Cap the lifting depth so the jump tables fit the CURRENT
+        memory headroom (never below 2 — depth 2 still terminates, just
+        slower).  Unbudgeted: unchanged."""
+        head = self.mem_headroom()
+        if head is None or levels <= 2:
+            return levels
+        per_level = 4 * (n + 1)
+        fit = int(head // (2 * per_level)) if per_level else levels
+        return max(2, min(levels, fit))
+
+    # -- disk --------------------------------------------------------------
+
+    def preflight_write(self, path: str, need: int) -> None:
+        """Refuse a write of ~``need`` bytes that the target filesystem
+        cannot hold with :data:`DISK_SLACK` to spare.  This is the
+        universal half of the preflight (io/atomic.py calls it when the
+        writer can estimate its size); the budget half lives with the
+        managed-directory owners (:meth:`check_dir_budget`)."""
+        if need <= 0:
+            return
+        free = disk_free(path)
+        if need + DISK_SLACK > free:
+            raise DiskExhausted(
+                f"{path}: refusing to write ~{need} bytes with only "
+                f"{free} free (slack {DISK_SLACK})")
+
+    def dir_budget_deficit(self, directory: str, need: int) -> int:
+        """Bytes the ``SHEEP_DISK_BUDGET`` cap is short for ``need`` more
+        bytes under ``directory`` (<= 0 means it fits; 0 when no budget)."""
+        if self.disk_budget is None:
+            return 0
+        return dir_usage(directory) + need - self.disk_budget
+
+    def check_dir_budget(self, directory: str, need: int,
+                         what: str) -> None:
+        deficit = self.dir_budget_deficit(directory, need)
+        if deficit > 0:
+            raise DiskExhausted(
+                f"{what}: {directory} would exceed the "
+                f"{self.disk_budget}-byte disk budget by {deficit} bytes "
+                f"(retention GC could not reclaim enough)")
+
+    def ext_fitted_block(self, n: int = 0) -> int:
+        """The ext rung's block size under THIS budget: the default (or
+        env) block, halved until the priced peak fits the current
+        headroom (floor 16K records — below that the per-block O(n)
+        merge swamps the stream).  An EXPLICIT ``SHEEP_EXT_BLOCK`` is
+        the operator's word and is never second-guessed — it is also
+        part of the checkpoint's resume identity, so auto-fitting only
+        applies where no one pinned it."""
+        block = ext_block_edges()
+        if os.environ.get(EXT_BLOCK_ENV, ""):
+            return block
+        head = self.mem_headroom()
+        if head is None:
+            return block
+        while block > EXT_BLOCK_FLOOR \
+                and 32 * n + EXT_RECORD_BYTES * block > head:
+            block //= 2
+        return block
+
+    def plan_rungs(self, rungs: list[str], n: int, links: int,
+                   workers: int = 1, threads: int = 1
+                   ) -> tuple[list[str], list[tuple]]:
+        """[The driver plans through ``plan.plan_build``, which runs this
+        same arithmetic plus measured-prior corrections; this method
+        remains the analytic reference the planner is tested against.]
+
+        Drop ladder rungs whose estimated peak cannot fit the memory
+        headroom (the LAST rung always survives — something must run, and
+        the spill floor is sized to fit any budget that fits n).  The ext
+        rung prices at its FITTED block (ext_fitted_block): it can shrink
+        its stream to the headroom, and skipping it for a default it
+        would never use would waste the fastest beyond-RAM path.
+        ``threads`` prices the threaded native kernels' per-thread
+        partial tables into the native-fold rungs.  Returns
+        (kept_rungs, [(rung, estimate, "skip"|"keep"), ...])."""
+        head = self.mem_headroom()
+        if head is None or not rungs:
+            return rungs, []
+        kept, trace = [], []
+        for i, rung in enumerate(rungs):
+            est = rung_peak_nbytes(
+                rung, n, links, workers,
+                ext_block=self.ext_fitted_block(n) if rung == "ext"
+                else None,
+                threads=threads)
+            if est > head and i < len(rungs) - 1:
+                trace.append((rung, est, "skip"))
+            else:
+                kept.append(rung)
+                trace.append((rung, est, "keep"))
+        return kept, trace
 
     def shrunk_levels(self, levels: int, n: int) -> int:
         """Cap the lifting depth so the jump tables fit the CURRENT

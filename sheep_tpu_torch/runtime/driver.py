@@ -15,7 +15,7 @@ dispatches survivable:
                         completed chunk and produces the bit-identical
                         tree (forest = f(threshold connectivity) only).
   sick card             the degradation ladder: single-card chunked ->
-                        host union-find (host, stream, spill), on an
+                        host union-find (host, stream, ext, spill), on an
                         injected fault, a watchdog deadline or memory
                         exhaustion (faults.degradable).  A kernel fault
                         on the card is retried on its rung and then
@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -58,89 +57,17 @@ from ..core.sequence import degree_sequence
 from ..integrity.errors import IntegrityError
 from ..integrity.sidecar import resolve_policy
 from ..obs import trace as obs
-from ..plan.model import DEFAULT_LADDER, available_rungs, plan_build
+from ..plan.model import (DEFAULT_LADDER, PROV_LEARNED, available_rungs,
+                          plan_build)
 from ..resources.governor import (NATIVE_THREADS_ENV, ResourceGovernor,
                                   rss_bytes)
 from .faults import (degradable, fault_point, is_retryable,
                      reset_counters)
+from .config import RuntimeConfig
 from .retry import RetryPolicy, run_with_retry
 from .snapshot import Checkpointer, Snapshot, input_signature
 
-
-@dataclass
-class RuntimeConfig:
-    """One build's fault-tolerance knobs (env SHEEP_CHECKPOINT_DIR/
-    SHEEP_RESUME/SHEEP_MAX_RETRIES and friends, read by
-    :meth:`from_env`).
-
-    ``ladder`` keeps the reference's default tuple, but the port runs
-    only the rungs it has ported (``_RUNGS``: single, host, stream,
-    spill): the planner's ``known=`` filter drops "mesh" (it waits for
-    the port of ``parallel/``) and "ext" (it waits for
-    ``ops/extmem.py``) wherever a ladder names them."""
-
-    checkpoint_dir: str | None = None
-    resume: bool = False
-    max_retries: int = 3
-    backoff_base_s: float = 0.05
-    backoff_cap_s: float = 2.0
-    watchdog_s: float | None = None
-    #: checkpoint cadence: persist every k-th boundary; 0 = auto-tune from
-    #: measured snapshot cost vs chunk compute time (snapshot.Checkpointer)
-    checkpoint_every: int = 1
-    #: after this many consecutive healthy (retry-free) dispatches, a rung
-    #: is promoted back to the fast pipelined dispatch path — no watchdog
-    #: thread, no per-dispatch block_until_ready — and demoted to the FT
-    #: wrapper again on the first fault (0 disables promotion)
-    promote_after: int = 16
-    #: integrity policy for checkpoint loads (strict/repair/trust; None =
-    #: env SHEEP_INTEGRITY, default strict).  strict: a corrupt snapshot
-    #: aborts the resume with a typed IntegrityError; repair: it is
-    #: discarded and the build restarts fresh — never resumed into garbage.
-    integrity: str | None = None
-    #: degradation ladder, tried in order.  "single" is the hosted chunk
-    #: loop on the build's device; "host" is the exact native
-    #: union-find; "stream" folds the SAME in-RAM link table through the
-    #: resumable native union-find one hi-quantile window at a time —
-    #: O(n + window) beyond the input, no int64 cast, no scratch file;
-    #: "spill", the memory FLOOR, keeps the links table in a
-    #: memory-mapped scratch file and folds it in bounded blocks.
-    ladder: tuple[str, ...] = ("mesh", "single", "host", "stream", "ext",
-                               "spill")
-    #: resource budgets (SHEEP_MEM_BUDGET / SHEEP_DISK_BUDGET); None =
-    #: build one from the environment.  The governor routes the ladder
-    #: around rungs whose estimated peak cannot fit, shrinks chunk work
-    #: under measured-RSS pressure, and prices checkpoint writes.
-    governor: ResourceGovernor | None = None
-    #: observable trace of what the runtime did: ("retry", site, attempt,
-    #: j), ("checkpoint", rung, boundary), ("degrade", rung, next, why),
-    #: ("resume", rung, boundary, rounds).  Tests and chip_smoke.py read
-    #: this.
-    events: list = field(default_factory=list)
-
-    @classmethod
-    def from_env(cls, **overrides) -> "RuntimeConfig":
-        env = os.environ
-        every_s = env.get("SHEEP_CHECKPOINT_EVERY", "1")
-        kw: dict = dict(
-            checkpoint_dir=env.get("SHEEP_CHECKPOINT_DIR") or None,
-            resume=env.get("SHEEP_RESUME", "") == "1",
-            max_retries=int(env.get("SHEEP_MAX_RETRIES", "3")),
-            backoff_base_s=float(env.get("SHEEP_BACKOFF_BASE", "0.05")),
-            checkpoint_every=0 if every_s == "auto" else int(every_s),
-            promote_after=int(env.get("SHEEP_PROMOTE_AFTER", "16")),
-            integrity=env.get("SHEEP_INTEGRITY") or None,
-        )
-        if env.get("SHEEP_WATCHDOG_S"):
-            kw["watchdog_s"] = float(env["SHEEP_WATCHDOG_S"])
-        kw.update(overrides)
-        return cls(**kw)
-
-    def policy(self) -> RetryPolicy:
-        return RetryPolicy(max_retries=self.max_retries,
-                           backoff_base_s=self.backoff_base_s,
-                           backoff_cap_s=self.backoff_cap_s,
-                           watchdog_s=self.watchdog_s)
+__all__ = ["ChunkRuntime", "RuntimeConfig", "build_graph_resilient"]
 
 
 class ChunkRuntime:
@@ -160,13 +87,22 @@ class ChunkRuntime:
                  pst: np.ndarray, input_sig: str, rounds_base: int = 0,
                  promote_after: int = 0,
                  governor: ResourceGovernor | None = None,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None,
+                 edges_path: str | None = None,
+                 ext_block: int | None = None):
         self.policy = policy
         self.ckpt = checkpointer
         self.events = events
         #: resource budgets: None = unbudgeted (every check is a no-op)
         self.governor = governor
         self.device = device if device is not None else torch.device("cpu")
+        #: the whole-input .dat file, when one exists (the ext rung's
+        #: source; RuntimeConfig.edges_path)
+        self.edges_path = edges_path
+        #: a planner-resolved ext block size — set only when a measured
+        #: prior CORRECTED the analytic fit; None lets the ext build run
+        #: the governor's own arithmetic
+        self.ext_block = ext_block
         self._last_levels_cap: int | None = None
         self.rung = rung
         self.n = n
@@ -355,6 +291,25 @@ def _rung_stream(lo, hi, n, rt, num_workers):
     return parent
 
 
+def _rung_ext(lo, hi, n, rt, num_workers):
+    """The external-memory rung: re-stream the ORIGINAL ``.dat`` file
+    block-wise through the out-of-core build (ops/extmem) — the one rung
+    that does not consume the in-RAM link table at all, so its peak is
+    O(n + block) regardless of the edge count.  Exact because the file's
+    record stream over the driver's sequence is the same link multiset
+    the other rungs reduce (forest = f(threshold connectivity) only).
+    pst comes from the driver's prep like every rung, so the ext build's
+    own accumulation is discarded.  Host code: it never touches the
+    card.  Only reachable when RuntimeConfig.edges_path names the
+    whole-input file (_ladder_rungs filters it otherwise)."""
+    from ..ops.extmem import build_forest_extmem
+
+    _, forest = build_forest_extmem(
+        rt.edges_path, seq=rt.seq, block_edges=rt.ext_block,
+        governor=rt.governor, events=rt.events)
+    return forest.parent
+
+
 def _rung_spill(lo, hi, n, rt, num_workers):
     """The memory FLOOR of the ladder: the links table spills
     to a memory-mapped int32 scratch file and the exact union-find folds
@@ -424,9 +379,9 @@ def _rung_spill(lo, hi, n, rt, num_workers):
         shutil.rmtree(scratch, ignore_errors=True)
 
 
-#: the rungs the port runs; "mesh" and "ext" wait for their modules
+#: the rungs the port runs; "mesh" waits for the port of parallel/
 _RUNGS = {"single": _rung_single, "host": _rung_host,
-          "stream": _rung_stream, "spill": _rung_spill}
+          "stream": _rung_stream, "ext": _rung_ext, "spill": _rung_spill}
 
 
 @contextlib.contextmanager
@@ -454,11 +409,12 @@ def _native_threads_env(tplan: dict):
 def _ladder_rungs(config: RuntimeConfig, num_workers,
                   device: torch.device) -> list[str]:
     # availability routes through the planner: the device count is the
-    # CUDA card count on CUDA and 1 on the CPU, and ``known`` keeps the
-    # rungs the port has not ported (mesh, ext) out of the ladder
+    # CUDA card count on CUDA and 1 on the CPU, ``known`` keeps the mesh
+    # rung (not ported yet) out of the ladder, and ext stays only with a
+    # whole-input .dat
     devices = torch.cuda.device_count() if device.type == "cuda" else 1
     return available_rungs(config.ladder, devices, num_workers,
-                           known=_RUNGS)
+                           config.edges_path, known=_RUNGS)
 
 
 def build_graph_resilient(tail, head, num_vertices=None, num_workers=None,
@@ -544,10 +500,14 @@ def build_graph_resilient(tail, head, num_vertices=None, num_workers=None,
     # re-pins a whole process; an operator pin is never second-guessed.
     plan = plan_build(n, len(lo), rungs=rungs, governor=gov,
                       num_workers=num_workers,
-                      ladder_forced=tuple(config.ladder) != DEFAULT_LADDER)
+                      ladder_forced=tuple(config.ladder) != DEFAULT_LADDER,
+                      edges_path=config.edges_path, platform=device.type)
     tplan = plan.native_threads
     events.append(("native-threads", tplan["threads"],
                    "pinned" if tplan["forced"] else tplan["reason"]))
+    ext_block = plan.decision("ext_block")
+    ext_block_planned = ext_block.value \
+        if ext_block.provenance == PROV_LEARNED else None
 
     # Memory-budget ladder planning (via the planner): rungs
     # whose (prior-corrected) priced peak cannot fit the headroom are
@@ -591,7 +551,8 @@ def build_graph_resilient(tail, head, num_vertices=None, num_workers=None,
                           rounds_base=rounds,
                           promote_after=config.promote_after,
                           governor=gov if gov.active else None,
-                          device=device)
+                          device=device, edges_path=config.edges_path,
+                          ext_block=ext_block_planned)
         if snap is None and i == 0:
             # boundary 0 = "prep complete": a kill during the first chunk
             # resumes without re-running the degree sort / link mapping

@@ -31,9 +31,8 @@ Fault kinds model the three real failure shapes of a device dispatch:
 from __future__ import annotations
 
 import os
+import sys
 from dataclasses import dataclass
-
-import torch
 
 from ..resources.errors import MemoryBudgetExceeded
 
@@ -182,6 +181,10 @@ def is_retryable(exc: BaseException) -> bool:
         return False
     if isinstance(exc, (InjectedDispatchFault, DeadlineExceeded)):
         return True
+    # a process that never loaded torch cannot have raised a torch error
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
     if isinstance(exc, torch.cuda.OutOfMemoryError):
         return True
     accel = getattr(torch, "AcceleratorError", None)
@@ -207,7 +210,11 @@ def degradable(exc: BaseException) -> bool:
     """
     if isinstance(exc, RetryBudgetExhausted) and exc.__cause__ is not None:
         exc = exc.__cause__
-    return isinstance(exc, (RetryBudgetExhausted, InjectedDispatchFault,
-                            DeadlineExceeded, MemoryError,
-                            MemoryBudgetExceeded,
-                            torch.cuda.OutOfMemoryError))
+    if isinstance(exc, (RetryBudgetExhausted, InjectedDispatchFault,
+                        DeadlineExceeded, MemoryError,
+                        MemoryBudgetExceeded)):
+        return True
+    # a process that never loaded torch cannot have raised a torch error
+    torch = sys.modules.get("torch")
+    return torch is not None \
+        and isinstance(exc, torch.cuda.OutOfMemoryError)

@@ -25,12 +25,11 @@ it and a retry would queue behind it: that timeout is
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable
-
-import torch
 
 from .faults import (DeadlineExceeded, DeviceHung, RetryBudgetExhausted,
                      fault_point, is_retryable)
@@ -55,7 +54,11 @@ class RetryPolicy:
 
 def _cuda_tensors(out):
     """The CUDA tensors among a dispatch's outputs (tensors, nested in
-    tuples, lists or dict values)."""
+    tuples, lists or dict values).  A process that never loaded torch
+    has none, and this does not load it."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return []
     if isinstance(out, torch.Tensor):
         return [out] if out.is_cuda else []
     if isinstance(out, (tuple, list)):
@@ -72,6 +75,10 @@ def sync_outputs(out) -> bool:
     attempt).  Returns whether there was CUDA work to wait for; CPU
     tensors are ready when the dispatch returns."""
     devices = {t.device for t in _cuda_tensors(out)}
+    if not devices:
+        return False
+    import torch
+
     for dev in devices:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(dev))
@@ -83,7 +90,8 @@ def _caller_stream():
     """The calling thread's current CUDA stream, or None when this
     process has not initialised CUDA (then no dispatch can queue on the
     card, and none is initialised here)."""
-    if not torch.cuda.is_initialized():
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
         return None
     return torch.cuda.current_stream()
 
@@ -112,8 +120,12 @@ def call_with_watchdog(fn, j, timeout_s: float | None):
 
     def attempt():
         try:
-            with torch.cuda.stream(stream) if stream is not None \
-                    else contextlib.nullcontext():
+            if stream is not None:
+                import torch
+                ctx = torch.cuda.stream(stream)
+            else:
+                ctx = contextlib.nullcontext()
+            with ctx:
                 out = fn(j)
                 result["cuda"] = bool(_cuda_tensors(out))
                 sync_outputs(out)

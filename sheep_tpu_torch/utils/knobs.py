@@ -80,6 +80,10 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
        "runtime",
        "healthy dispatches before a rung promotes back to the pipelined fast "
        "path (0 = never)"),
+    _K("SHEEP_EDGES_PATH", "path", "",
+       "runtime",
+       "the whole-input .dat file; arms the ext rung for library/script "
+       "builds"),
     _K("SHEEP_FAULT_INJECT", "plan", "",
        "runtime",
        "deterministic runtime fault plan kind@site:nth (chunk loops, "
@@ -151,6 +155,10 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
        "extmem",
        "ext rung block size in edge records; pinning it is part of the "
        "checkpoint resume identity"),
+    _K("SHEEP_EXT_STRATEGY", "str", "priced",
+       "extmem",
+       "per-block fold strategy: edges / links (unset = the governor's "
+       "priced pick)"),
     _K("SHEEP_DISTEXT_LEGS", "int", "0",
        "extmem",
        "pin the distributed out-of-core leg count (0 = the planner picks)"),

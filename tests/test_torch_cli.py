@@ -8,9 +8,14 @@ host-only tools.  Every run must print the same stdout less its timing
 lines, exit with the same code, and the two directories must end up
 holding the same files, byte for byte (sidecars included).
 
-Routes the port has not ported raise SystemExit naming their ROADMAP.md
-queue item, and never fall back to another route
-(``test_unported_route_raises``).
+The external-memory and treewidth routes, which raised until their
+modules came over, are held against the reference the same way
+(``test_ext_and_jxn_routes_equal_reference``; a memory budget routes by
+the headroom over the process's RSS, so those cases pin the RSS both
+packages read).  The ``plan`` tool is held against the reference's
+(``test_plan_equals_reference``).  Routes the port has not ported raise
+SystemExit naming their ROADMAP.md queue item, and never fall back to
+another route (``test_unported_route_raises``).
 """
 
 import contextlib
@@ -51,11 +56,21 @@ def stable_lines(out: str) -> list:
             if " in: " not in ln and " took: " not in ln]
 
 
-def run_ref(tool: str, argv: list, env: dict, cwd: str):
+def run_ref(tool: str, argv: list, env: dict, cwd: str,
+            rss: int | None = None):
+    """The reference's tool as a subprocess; ``rss`` pins the RSS its
+    governor reads (``resources.governor.rss_bytes``)."""
+    if rss is None:
+        cmd = ["-m", f"sheep_tpu.cli.{tool}"]
+    else:
+        cmd = ["-c", "import sys\n"
+               "import sheep_tpu.resources.governor as g\n"
+               f"g.rss_bytes = lambda: {rss}\n"
+               f"from sheep_tpu.cli.{tool} import main\n"
+               "sys.exit(main(sys.argv[1:]))\n"]
     proc = subprocess.run(
-        [sys.executable, "-m", f"sheep_tpu.cli.{tool}"] + argv,
-        capture_output=True, text=True, timeout=300, env=ref_env(env),
-        cwd=cwd)
+        [sys.executable] + cmd + argv, capture_output=True, text=True,
+        timeout=300, env=ref_env(env), cwd=cwd)
     return proc.returncode, proc.stdout, proc.stderr
 
 
@@ -241,45 +256,203 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_cli_equals_reference(tmp_path, case):
+def _run_steps(tmp_path, steps, rss=None, monkeypatch=None):
+    """Run ``steps`` through both packages in directories of their own and
+    hold stdout, exit codes and the files they leave equal; returns the
+    port's files.  ``rss`` pins the RSS both governors read (the
+    reference's in its subprocess, the port's here)."""
+    if rss is not None:
+        from sheep_tpu_torch.resources import governor
+        monkeypatch.setattr(governor, "rss_bytes", lambda: rss)
     dirs = {}
     for side in ("ref", "port"):
         d = tmp_path / side
         d.mkdir()
         dirs[side] = str(d)
-    for i, (tool, argv, env) in enumerate(CASES[case]):
+    for i, (tool, argv, env) in enumerate(steps):
         if tool == "!flip":
             for d in dirs.values():
                 flip(os.path.join(d, argv[0]), argv[1])
             continue
         rc, out, err = run_ref(tool, argv, {k: v.format(d=dirs["ref"])
                                             for k, v in env.items()},
-                               dirs["ref"])
+                               dirs["ref"], rss=rss)
         prc, pout = run_port(tool, argv, {k: v.format(d=dirs["port"])
                                           for k, v in env.items()},
                              dirs["port"])
-        where = f"{case} step {i} ({tool} {' '.join(argv)})"
+        where = f"step {i} ({tool} {' '.join(argv)})"
         assert prc == rc, f"{where}: exit {prc} != {rc}\n{err}"
         assert stable_lines(pout) == stable_lines(out), where
     want, got = tree(dirs["ref"]), tree(dirs["port"])
     assert sorted(got) == sorted(want)
     for rel in want:
-        assert got[rel] == want[rel], f"{case}: {rel} differs"
+        assert got[rel] == want[rel], f"{rel} differs"
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cli_equals_reference(tmp_path, case):
+    got = _run_steps(tmp_path, CASES[case])
     if case == "path_equivalence":
         serial = got["serial.tre"]
         for name in ("r.tre", "ir.tre", "i.tre"):
             assert got[name] == serial, name
 
 
+#: the RSS both packages' governors read in the budgeted cases: a budget
+#: of PINNED_RSS + room leaves ``room`` bytes of headroom
+PINNED_RSS = 1 << 27
+#: headroom that holds the ext rung's floor block (64 B x 2^14 records)
+#: but not the in-RAM load (24 B a record) of R-MAT 2^14 x 8
+EXT_ROOM = 2 << 20
+
+#: the external-memory and treewidth routes: id -> (steps, pin the RSS)
+EXT_JXN = {
+    "jxn_kids": ([G("-k", "-f")], False),
+    "jxn_width": ([G("-w", "3", "-f", "-o", "t.tre")], False),
+    "jxn_mesh": ([G("-i", "-r", "-x", "-f")], False),
+    "jxn_kej_validate": ([G("-k", "-e", "-j", "-f", "-c")], False),
+    "jxn_ir_kej": ([G("-i", "-r", "-k", "-e", "-j", "-f", "-c", "-o",
+                      "t.tre")], False),
+    "jxn_i_seq_write": ([G("-i", "-k", "-e", "-j", "-s", "i.seq", "-f")],
+                        False),
+    "jxn_seq_given_max_width": ([SEQ, G("-s", "s.seq", "-k", "-e", "-j",
+                                        "-x", "-w", "40", "-f")], False),
+    "jxn_memory_limit": ([G("-k", "-e", "-j", "-m", "1", "-f")], False),
+    "jxn_print_tree": ([T("make_graph", "7", "2", "g.dat", "3"),
+                        T("graph2tree", "g.dat", "-e", "-t")], False),
+    "ext_flag": ([G("--ext", "-f", "-o", "t.tre")], False),
+    "ext_env": ([G("-f", "-o", "t.tre", env={"SHEEP_EXT_BLOCK": "4096"})],
+                False),
+    "ext_budget": ([T("make_graph", "14", "8", "g.dat", "1"),
+                    T("graph2tree", "g.dat", "-f", "-o", "t.tre",
+                      env={"SHEEP_MEM_BUDGET": str(PINNED_RSS + EXT_ROOM)})],
+                   True),
+    # below the floor block the reference picks its distributed build;
+    # without -o that falls back, and the budget then routes to ext
+    "ext_budget_distext_fallback": (
+        [G("-f", env={"SHEEP_MEM_BUDGET": str(PINNED_RSS + 300_000)})],
+        True),
+    "ext_seq_given_validate": ([SEQ, G("--ext", "-s", "s.seq", "-o",
+                                       "t.tre", "-f", "-c", "-v")], False),
+    "ext_partition_print": ([G("--ext", "-p", "2")], False),
+    "ext_checkpoint": ([G("--ext", "--checkpoint-dir", "ck", "-o", "t.tre",
+                          env={"SHEEP_EXT_BLOCK": "3000"})], False),
+    "ext_equals_ram": ([G("-o", "ram.tre"),
+                        G("--ext", "-o", "ext.tre",
+                          env={"SHEEP_EXT_BLOCK": "1000",
+                               "SHEEP_EXT_STRATEGY": "links"})], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXT_JXN))
+def test_ext_and_jxn_routes_equal_reference(tmp_path, monkeypatch, case):
+    """The routes that raised until ops/extmem.py and core/jxn.py came
+    over: the same stdout, exit codes and file bytes as the reference."""
+    steps, pin = EXT_JXN[case]
+    got = _run_steps(tmp_path, steps, rss=PINNED_RSS if pin else None,
+                     monkeypatch=monkeypatch)
+    if case == "ext_equals_ram":
+        assert got["ext.tre"] == got["ram.tre"]
+
+
+def test_ext_budget_routes_to_ext_without_the_flag(tmp_path, monkeypatch):
+    """Under a pinned RSS the budget alone sends the port to the ext
+    route, and without the budget to the in-RAM build; both write the
+    same tree."""
+    from sheep_tpu_torch.ops import extmem
+    from sheep_tpu_torch.resources import governor
+    monkeypatch.setattr(governor, "rss_bytes", lambda: PINNED_RSS)
+    calls = []
+    real = extmem.build_forest_extmem
+    monkeypatch.setattr(extmem, "build_forest_extmem",
+                        lambda *a, **kw: calls.append(a) or real(*a, **kw))
+    rc, _ = run_port("make_graph", ["14", "8", "g.dat", "1"], {},
+                     str(tmp_path))
+    assert rc == 0
+    graph = str(tmp_path / "g.dat")
+    for name, budget in (("ext", str(PINNED_RSS + EXT_ROOM)), ("ram", "")):
+        env = {"SHEEP_MEM_BUDGET": budget} if budget else {}
+        d = tmp_path / name
+        d.mkdir()
+        rc, _ = run_port("graph2tree", [graph, "-o", "t.tre"], env, str(d))
+        assert rc == 0
+        assert len(calls) == 1  # the budgeted run only
+    assert open(tmp_path / "ext" / "t.tre", "rb").read() == \
+        open(tmp_path / "ram" / "t.tre", "rb").read()
+
+
+_TRACE = [
+    {"k": "meta", "v": 1, "pid": 1, "t0": 0.0, "argv": []},
+    {"k": "ev", "name": "ladder.plan", "t": 0.1,
+     "a": {"n": 7610, "links": 15751, "rss_bytes": 50_000_000}},
+    {"k": "ev", "name": "rung.ok", "t": 0.2,
+     "a": {"rung": "host", "est_bytes": 400_000, "rss_bytes": 50_300_000,
+           "n": 7610}},
+    {"k": "span", "name": "rung", "id": 1, "par": 0, "tid": 1, "t": 0.1,
+     "dur": 0.25, "a": {"rung": "host", "links": 15751}},
+    {"k": "span", "name": "rung", "id": 2, "par": 0, "tid": 1, "t": 0.4,
+     "dur": 0.5, "a": {"rung": "ext", "links": 15751}},
+]
+
+#: the plan tool: id -> steps
+PLAN = {
+    "explain_hypothetical": [T("plan", "--explain", "-n", "1048576", "-e",
+                               "4194304", "--assume-rss", "100000000",
+                               env={"SHEEP_MEM_BUDGET": "192M"})],
+    "explain_unbudgeted": [T("plan", "--explain", "-n", "4096", "-w", "2")],
+    "explain_default_edges": [T("plan", "-n", "65536", "--assume-rss", "0",
+                                env={"SHEEP_MEM_BUDGET": "8M"})],
+    "explain_dat": [T("make_graph", "10", "4", "g.dat", "5"),
+                    T("plan", "--explain", "--assume-rss", "150000000",
+                      "g.dat", env={"SHEEP_MEM_BUDGET": "192M"})],
+    "explain_dat_pinned_block": [
+        T("make_graph", "10", "4", "g.dat", "5"),
+        T("plan", "--assume-rss", "1000", "g.dat",
+          env={"SHEEP_MEM_BUDGET": "64M", "SHEEP_EXT_BLOCK": "2M",
+               "SHEEP_DISTEXT_LEGS": "3"})],
+    "json_dat": [T("make_graph", "10", "4", "g.dat", "5"),
+                 T("plan", "--json", "--assume-rss", "190000000", "g.dat",
+                   env={"SHEEP_MEM_BUDGET": "192M"})],
+    "json_hypothetical": [T("plan", "--json", "-n", "1048576", "-e",
+                            "67108864", "--assume-rss", "1000000",
+                            env={"SHEEP_MEM_BUDGET": "1G",
+                                 "SHEEP_HANDOFF_WINDOWS": "3",
+                                 "SHEEP_PIPELINE_CHUNKS": "0"})],
+    "harvest_then_explain": [
+        T("plan", "--harvest", "p.store", "{trace}", "{bench}"),
+        T("plan", "--explain", "--priors", "p.store", "-n", "7610", "-e",
+          "15751", "--assume-rss", "0", env={"SHEEP_MEM_BUDGET": "1G"})],
+    "harvest_missing": [T("plan", "--harvest", "p.store", "nope.trace")],
+    "harvest_usage": [T("plan", "--harvest", "p.store")],
+    "not_dat": [T("make_graph", "8", "2", "g.net"),
+                T("plan", "--explain", "g.net")],
+    "missing_file": [T("plan", "--explain", "nope.dat")],
+    "two_inputs": [T("plan", "a.dat", "b.dat")],
+    "usage": [T("plan")],
+    "bad_option": [T("plan", "-q")],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN))
+def test_plan_equals_reference(tmp_path, monkeypatch, case):
+    """``plan`` prints the reference's plan (RSS pinned by
+    --assume-rss), harvests the same priors into the same store bytes,
+    and exits with its codes."""
+    import json
+    trace = tmp_path / "run.trace"
+    trace.write_text("".join(json.dumps(r) + "\n" for r in _TRACE))
+    files = {"trace": str(trace),
+             "bench": os.path.join(REPO, "EXTBENCH_r01.json")}
+    steps = [(tool, [a.format(**files) for a in argv], env)
+             for tool, argv, env in PLAN[case]]
+    # the thread veto and the jump-table depth read the live RSS, which
+    # --assume-rss does not pin: pin it in both processes
+    _run_steps(tmp_path, steps, rss=PINNED_RSS, monkeypatch=monkeypatch)
+
+
 #: routes that wait for a queue item: (argv, env, QUEUE key)
 UNPORTED = {
-    "jxn_kids": (["-k", "-f"], {}, "jxn"),
-    "jxn_width": (["-w", "3"], {}, "jxn"),
-    "jxn_mesh": (["-i", "-r", "-x"], {}, "jxn"),
-    "ext_flag": (["--ext", "-f"], {}, "extmem"),
-    "ext_env": (["-f"], {"SHEEP_EXT_BLOCK": "4096"}, "extmem"),
-    "ext_budget": (["-f"], {"SHEEP_MEM_BUDGET": "2G"}, "extmem"),
     "distext_flag": (["--distext", "-o", "t.tre"], {}, "distext"),
     "distext_env": (["-o", "t.tre"], {"SHEEP_DISTEXT_LEGS": "2"},
                     "distext"),
@@ -305,16 +478,13 @@ def test_unported_route_raises(tmp_path, monkeypatch, case):
     argv, env, key = UNPORTED[case]
     if env.get("SHEEP_MEM_BUDGET"):
         # a budget whose headroom (budget less RSS) is what the route
-        # prices: below one in-RAM hep-th load, and for distext below the
-        # ext rung's floor block too
+        # prices: below the ext rung's floor block
         rss = governor.rss_bytes()
-        room = 1 << 19 if key == "distext" else 300_000
-        env = {"SHEEP_MEM_BUDGET": str(rss + room)}
+        env = {"SHEEP_MEM_BUDGET": str(rss + (1 << 19))}
         monkeypatch.setattr(governor, "rss_bytes", lambda: rss)
     if env.get("SHEEP_WORKERS") == "2":
         # two cards: the mesh the port cannot run yet
-        for module in (pbuild, graph2tree):
-            monkeypatch.setattr(module, "device_count", lambda device: 2)
+        monkeypatch.setattr(pbuild, "device_count", lambda device: 2)
     monkeypatch.chdir(tmp_path)
     with port_env(env), pytest.raises(SystemExit) as exc:
         graph2tree.main([HEP, *argv], device="cpu")

@@ -6,8 +6,10 @@ streamed, serial and speculative arms, the last also forced to hand off
 the snapshot its side stream fetched) against the port's host oracle,
 and the fault-tolerant build on the card (K1 on its single rung, a kill
 and resume, a real CUDA out-of-memory error and a watchdog on a held
-dispatch, each degrading to the host rung, and the watchdog's stream),
-and ``graph2tree -i -r`` on hep-th, the user's entry point to K1.
+dispatch, each degrading to the host rung, and the watchdog's stream;
+a degrade from the single rung to the external-memory rung), and
+``graph2tree -i -r`` on hep-th, the user's entry point to K1, also in
+the treewidth mode.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 CUDA kernels with no CPU or interpret mode).  This file imports no jax, so it
@@ -537,3 +539,59 @@ def test_cuda_graph2tree_ir_on_hepth(cuda, tmp_path, capsys):
     parent, pst = read_tree(str(tmp_path / "t.tre"))
     assert np.array_equal(parent, want.parent)
     assert np.array_equal(pst, want.pst_weight)
+
+
+def test_cuda_graph2tree_ir_treewidth_on_hepth(cuda, tmp_path, capsys):
+    """The treewidth mode with ``-i -r``: the degree sort on the card,
+    then the host insert; ``width:551`` and ``Tree is valid.``, and the
+    serial route's tree."""
+    import os
+
+    from sheep_tpu_torch.cli import graph2tree
+
+    hep = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "data", "hep-th.dat")
+    args = ["-k", "-e", "-j", "-f", "-c", "-o"]
+    assert graph2tree.main([hep, "-i", "-r", *args,
+                            str(tmp_path / "ir.tre")]) == 0
+    out = capsys.readouterr().out
+    assert "TREEFAQS: width:551\troots:581\n" in out
+    assert "Tree is valid." in out and "Reduced in:" in out
+    assert graph2tree.main([hep, *args, str(tmp_path / "serial.tre")]) == 0
+    assert "TREEFAQS: width:551\troots:581\n" in capsys.readouterr().out
+    for suffix in ("", ".sum"):
+        assert (tmp_path / f"ir.tre{suffix}").read_bytes() == \
+            (tmp_path / f"serial.tre{suffix}").read_bytes()
+
+
+def test_cuda_resilient_degrades_single_to_ext(cuda, tmp_path):
+    """The ext rung on the card's ladder: K1 launches on single, whose
+    second dispatch then fails for good; the ladder degrades to ext,
+    which re-streams the .dat file, equal to the oracle."""
+    from sheep_tpu_torch.io import write_dat
+    from sheep_tpu_torch.runtime import (FaultPlan, RuntimeConfig,
+                                         build_graph_resilient, clear_plan,
+                                         install_plan, reset_counters)
+
+    tail, head = rmat_edges(16, 8 << 16, seed=3)
+    path = str(tmp_path / "g.dat")
+    write_dat(path, tail, head)
+    want_seq = degree_sequence(tail, head)
+    want = build_forest(tail, head, want_seq)
+    cfg = RuntimeConfig(ladder=("single", "ext"), edges_path=path,
+                        max_retries=1, backoff_base_s=0.0)
+    pj.launches = 0
+    reset_counters()
+    install_plan(FaultPlan("chunk", 1, "xla", -1))
+    try:
+        seq, forest = build_graph_resilient(tail, head, config=cfg)
+    finally:
+        clear_plan()
+        reset_counters()
+    assert pj.launches > 0
+    assert [e[:3] for e in cfg.events if e[0] == "degrade"] == \
+        [("degrade", "single", "ext")]
+    assert any(e[0] == "ext-block" for e in cfg.events)
+    np.testing.assert_array_equal(seq, want_seq)
+    np.testing.assert_array_equal(forest.parent, want.parent)
+    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)

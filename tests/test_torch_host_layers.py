@@ -240,14 +240,23 @@ def test_orphan_temps_swept(tmp_path):
 @pytest.mark.parametrize("devices, workers", [(1, None), (8, None), (8, 1),
                                               (None, 2)])
 @pytest.mark.parametrize("known", [None, ("single", "host", "stream",
-                                          "spill")])
-def test_available_rungs_equal_reference(ladder, devices, workers, known):
-    # the port has no ext rung: it answers as the reference does for an
-    # in-memory build (no whole-input .dat)
-    assert port_model.available_rungs(ladder, devices, workers,
-                                      known=known) == \
-        ref_model.available_rungs(ladder, devices, workers, None,
-                                  known=known)
+                                          "ext", "spill")])
+@pytest.mark.parametrize("edges", [None, "g.dat", "g.net", "missing.dat"])
+def test_available_rungs_equal_reference(tmp_path, ladder, devices, workers,
+                                         known, edges):
+    # ext stays only with a whole-input .dat that exists, as in the
+    # reference; an in-memory build (no edges path) drops it
+    path = None
+    if edges is not None:
+        path = str(tmp_path / edges)
+        if not edges.startswith("missing"):
+            open(path, "wb").close()
+    got = port_model.available_rungs(ladder, devices, workers, path,
+                                     known=known)
+    assert got == ref_model.available_rungs(ladder, devices, workers, path,
+                                            known=known)
+    if "ext" in ladder:
+        assert ("ext" in got) == (edges == "g.dat")
 
 
 @pytest.mark.parametrize("budget", [None, 1 << 24, 1 << 40])
@@ -264,10 +273,12 @@ def test_plan_build_equals_reference(monkeypatch, budget, n, links):
         **kw)
     assert port.rungs == ref.rungs
     assert port.candidates == ref.candidates
-    # the port makes the two decisions its driver reads, as the reference
-    assert list(port.decisions) == ["native_threads", "rungs"]
-    assert port.decisions_dict() == [ref.decision(k).to_dict()
-                                     for k in port.decisions]
+    # every decision the reference makes, in its order (the ext block,
+    # handoff windows, depth and gates came with the ext rung and plan)
+    assert list(port.decisions) == list(ref.decisions)
+    assert port.decisions_dict() == ref.decisions_dict()
+    assert port.to_dict() == ref.to_dict()
+    assert port.explain() == ref.explain()
     assert port.native_threads == ref.native_threads
     assert port.headroom_bytes == ref.headroom_bytes
 

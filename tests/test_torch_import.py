@@ -34,7 +34,25 @@ NEW_MODULES = (
     "sheep_tpu_torch.cli.merge_trees", "sheep_tpu_torch.cli.partition_tree",
     "sheep_tpu_torch.integrity.fsck", "sheep_tpu_torch.parallel",
     "sheep_tpu_torch.parallel.build", "sheep_tpu_torch.supervisor",
-    "sheep_tpu_torch.supervisor.heartbeat", "sheep_tpu_torch.utils.knobs")
+    "sheep_tpu_torch.supervisor.heartbeat", "sheep_tpu_torch.utils.knobs",
+    # the external-memory build, the treewidth mode and the planner tool
+    "sheep_tpu_torch.ops.extmem", "sheep_tpu_torch.core.jxn",
+    "sheep_tpu_torch.cli.plan", "sheep_tpu_torch.runtime.config")
+
+#: modules a host route imports: none may load torch on import
+TORCH_FREE = (
+    "sheep_tpu_torch", "sheep_tpu_torch.ops", "sheep_tpu_torch.ops.extmem",
+    "sheep_tpu_torch.runtime", "sheep_tpu_torch.runtime.config",
+    "sheep_tpu_torch.runtime.faults", "sheep_tpu_torch.runtime.retry",
+    "sheep_tpu_torch.runtime.snapshot", "sheep_tpu_torch.core",
+    "sheep_tpu_torch.core.jxn", "sheep_tpu_torch.native",
+    "sheep_tpu_torch.io", "sheep_tpu_torch.partition",
+    "sheep_tpu_torch.plan", "sheep_tpu_torch.resources",
+    "sheep_tpu_torch.integrity", "sheep_tpu_torch.obs",
+    "sheep_tpu_torch.cli.common", "sheep_tpu_torch.cli.graph2tree",
+    "sheep_tpu_torch.cli.degree_sequence", "sheep_tpu_torch.cli.make_graph",
+    "sheep_tpu_torch.cli.partition_tree", "sheep_tpu_torch.cli.merge_trees",
+    "sheep_tpu_torch.cli.fsck", "sheep_tpu_torch.cli.plan")
 
 
 def _modules():
@@ -74,6 +92,40 @@ def test_importing_every_module_loads_no_jax_and_no_sheep_tpu():
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_host_modules_load_no_torch():
+    """The host layers, the CLI and the lazy packages import without
+    torch; a device name resolved through them loads it on first use."""
+    prog = ("import importlib, sys\n"
+            f"for m in {TORCH_FREE!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from sheep_tpu_torch.runtime import RuntimeConfig\n"
+            "from sheep_tpu_torch.ops import build_forest_extmem\n"
+            "print('torch' in sys.modules)\n"
+            "from sheep_tpu_torch.ops import build_graph_hybrid\n"
+            "from sheep_tpu_torch.runtime import build_graph_resilient\n"
+            "print('torch' in sys.modules)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "True"], out.stdout
+
+
+def test_lazy_packages_resolve_every_name():
+    import sheep_tpu_torch.ops as ops
+    import sheep_tpu_torch.runtime as rt
+    for name in ops.__all__:
+        assert callable(getattr(ops, name)), name
+    for name in rt.__all__:
+        assert getattr(rt, name) is not None, name
+    assert set(ops.__all__) <= set(dir(ops))
+    with pytest.raises(AttributeError):
+        ops.no_such_name
+    with pytest.raises(AttributeError):
+        rt.no_such_name
 
 
 @pytest.mark.parametrize("path", [

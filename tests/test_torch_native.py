@@ -191,6 +191,64 @@ def test_threaded_fold_bit_equal_to_serial_and_reference(thread_env, blocked,
     _eq_pair(got, ref_native.build_forest_edges(tail, head, pos, n))
 
 
+_NO_TORCH_PROG = """\
+import json, os, sys
+import numpy as np
+from sheep_tpu_torch import native
+from sheep_tpu_torch.core import sequence as PS
+from sheep_tpu_torch.utils import rmat_edges
+tail, head = rmat_edges(18, 4 << 18, seed=7)
+seq = PS.degree_sequence(tail, head)
+pos = PS.sequence_positions(seq, int(max(tail.max(), head.max())))
+lo, hi = native.edges_to_links(tail, head, pos)
+out = {}
+for t in ("1", "4"):
+    os.environ["SHEEP_NATIVE_THREADS"] = t
+    parent, pst = native.build_forest_links(lo, hi, len(seq))
+    out[t] = {"used": native.last_thread_stats()[0],
+              "parent": int(parent.astype(np.uint64).sum()),
+              "pst": int(pst.astype(np.uint64).sum())}
+maps = open("/proc/self/maps").read()
+out["gomp"] = sorted({ln.split()[-1] for ln in maps.splitlines()
+                      if "gomp" in ln})
+out["torch"] = "torch" in sys.modules
+print(json.dumps(out))
+"""
+
+
+def test_threaded_fold_in_a_process_without_torch(thread_env):
+    """A process that never loads torch (the host routes) binds the
+    library to the system's OpenMP runtime, not torch's: the threaded
+    fold still runs 4 threads and gives the serial fold's result, and
+    the same result as in this process, which loaded torch."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _NO_TORCH_PROG],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout)
+    assert got["torch"] is False
+    if native.omp_compiled():
+        assert got["4"]["used"] == 4
+    assert got["1"]["used"] == 1
+    assert {k: v for k, v in got["4"].items() if k != "used"} == \
+        {k: v for k, v in got["1"].items() if k != "used"}
+    tail, head = _graph(7, log_n=18, factor=4)
+    seq = PS.degree_sequence(tail, head)
+    pos = PS.sequence_positions(seq, int(max(tail.max(), head.max())))
+    lo, hi = native.edges_to_links(tail, head, pos)
+    thread_env.setenv("SHEEP_NATIVE_THREADS", "4")
+    parent, pst = native.build_forest_links(lo, hi, len(seq))
+    assert int(parent.astype(np.uint64).sum()) == got["4"]["parent"]
+    assert int(pst.astype(np.uint64).sum()) == got["4"]["pst"]
+
+
 # ---------------------------------------------------------------------------
 # histograms and degree sorts
 # ---------------------------------------------------------------------------

@@ -360,10 +360,13 @@ def test_resilient_build_matches_reference(small_graph, tmp_path, ladder,
     assert "degrade" not in kinds
 
 
-def test_default_ladder_leaves_out_mesh_and_ext(small_graph):
-    """The reference's default ladder tuple stays; the port runs its
-    ported rungs only, so on one device the build starts at ``single``
-    and never degrades."""
+def test_default_ladder_leaves_out_mesh_and_ext(small_graph, tmp_path):
+    """The reference's default ladder tuple stays; on one device the
+    build starts at ``single`` and never degrades.  Without an
+    ``edges_path`` the ladder leaves ext out, as the reference's does;
+    with a whole-input ``.dat`` it goes in between stream and spill."""
+    from sheep_tpu.io.edges import write_dat
+    from sheep_tpu_torch.runtime.driver import _ladder_rungs
     tail, head, _, want = small_graph
     cfg = RuntimeConfig()
     assert cfg.ladder == ref_rt.RuntimeConfig().ladder
@@ -371,9 +374,21 @@ def test_default_ladder_leaves_out_mesh_and_ext(small_graph):
                                          config=cfg, device="cpu")
     _assert_matches(forest, want)
     assert not any(e[0] == "degrade" for e in cfg.events)
-    from sheep_tpu_torch.runtime.driver import _ladder_rungs
-    assert _ladder_rungs(cfg, None, torch.device("cpu")) == \
+    cpu = torch.device("cpu")
+    assert _ladder_rungs(cfg, None, cpu) == \
         ["single", "host", "stream", "spill"]
+    path = str(tmp_path / "g.dat")
+    write_dat(path, tail, head)
+    with_file = RuntimeConfig(edges_path=path)
+    assert _ladder_rungs(with_file, None, cpu) == \
+        ["single", "host", "stream", "ext", "spill"]
+    net = RuntimeConfig(edges_path=str(tmp_path / "g.net"))
+    assert "ext" not in _ladder_rungs(net, None, cpu)
+    _, forest = rt.build_graph_resilient(tail, head, num_workers=1,
+                                         config=with_file, device="cpu")
+    _assert_matches(forest, want)
+    assert not any(e[0] in ("degrade", "ext-block")
+                   for e in with_file.events)
 
 
 @pytest.mark.parametrize("case", [
@@ -688,6 +703,8 @@ def test_fixed_cadence_ignores_observations(tmp_path):
     ("SHEEP_WATCHDOG_S", "0.5", "watchdog_s", 0.5),
     ("SHEEP_MAX_RETRIES", "7", "max_retries", 7),
     ("SHEEP_RESUME", "1", "resume", True),
+    ("SHEEP_EDGES_PATH", "/data/g.dat", "edges_path", "/data/g.dat"),
+    ("SHEEP_EDGES_PATH", "", "edges_path", None),
 ])
 def test_config_from_env_equals_reference(monkeypatch, var, value, field,
                                           want):
