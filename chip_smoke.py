@@ -117,6 +117,22 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
     (SHEEP_TRACE), the loop's device waits, boundary fetches, host
     assists and remaps, each snapshot's seconds and bytes, peak device
     memory;
+10b. the sharded mesh build (``mesh`` line): the port's mesh given W
+    workers on the one card through the ``parallel.mesh.mesh_devices``
+    seam; on the real-size graph ``build_graph_distributed`` at W = 2, 4
+    and 8 (the chunked build, unified global rounds), the split form
+    (``unified=False``) and the map-only partials merged on the card by
+    ``merge_forests_device`` at W = 4, and the fault-tolerant build from
+    its ``mesh`` rung at W = 4 with checkpoints (no degrade); on
+    rmat_edges(20, 2^23, seed=1) the single-dispatch twin
+    (SHEEP_MESH_KERNEL=loop) and both mesh streaming builds in 4 blocks
+    at W = 4; each equal to the oracle bit for bit, K1 launched, and on
+    every worker where the build counts per worker; each run's wall,
+    timings (prep/map/reduce seconds, rounds), comm model and peak
+    device memory.  Then ``graph2tree data/hep-th.dat -i -r -f -c`` as a
+    process joined through SHEEP_COORDINATOR at world size 1 over NCCL
+    with two workers on the card: the golden TREEFAQS line, ``Tree is
+    valid.``, K1 launched in it;
 11. build_graph_device on rmat_edges(20, 2^23, seed=1) equals the oracle;
 12. the fault-tolerant build on that graph: a kill at every checkpoint
     boundary in turn, each resumed to the uninterrupted forest with a
@@ -2178,6 +2194,222 @@ def k1_failure(device, tail, head):
                                    "events": kinds}))
 
 
+#: the ladder of the mesh phase's resilient run: the mesh rung first
+MESH_LADDER = ("mesh", "single", "host", "stream", "spill")
+
+
+@contextlib.contextmanager
+def mesh_workers(device: torch.device, w: int):
+    """Give the port's mesh ``w`` workers on ``device`` inside the block,
+    through the seam ``parallel.mesh.mesh_devices`` (one card here: the
+    workers share it and run their rounds in turn)."""
+    from sheep_tpu_torch.parallel import mesh
+
+    saved = mesh.mesh_devices
+    mesh.mesh_devices = lambda dev: [device] * w
+    try:
+        yield
+    finally:
+        mesh.mesh_devices = saved
+
+
+def mesh_run(name: str, w: int, build, want_seq, want, device,
+             check=None) -> dict:
+    """One mesh build of ``w`` workers on the card: ``build(timings,
+    comm)`` returns (seq, Forest), which must equal the oracle (``check``
+    replaces the comparison where the result is not one tree); K1 must be
+    launched, and on every worker where the build reports per-worker
+    launches.  Returns the run's record: wall, timings, comm, launches,
+    peak device memory, and the host-clock seconds of the single-device
+    loop's plateau assists and vertex remaps (:class:`LoopRecorder`; the
+    replicated finish of the gathered tail runs that loop)."""
+    tm: dict = {}
+    comm: dict = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with mesh_workers(device, w), LoopRecorder() as loop:
+        out, wall, launches = counted_build(lambda: build(tm, comm), name)
+    ok = check(out) if check is not None else forest_equal(*out, want_seq,
+                                                           want)
+    if not ok:
+        raise AssertionError(f"mesh {name} (W={w}) differs from the oracle")
+    parts = loop.record()
+    rec = {"run": name, "W": w, "wall_s": wall, "k1_launches": launches,
+           **{k: parts[k] for k in ("assist_s", "assist_calls", "remap_s",
+                                    "remap_calls")}}
+    if tm:
+        rec["timings"] = {k: tm[k] for k in ("prep_s", "map_s", "reduce_s",
+                                             "map_rounds", "reduce_rounds")}
+        rec["k1_by_worker"] = tm["k1_by_worker"]
+        if min(tm["k1_by_worker"]) <= 0:
+            raise AssertionError(f"mesh {name} (W={w}): K1 was not launched "
+                                 f"on every worker: {tm['k1_by_worker']}")
+    if comm:
+        rec["comm"] = comm
+    if device.type == "cuda":
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"mesh run {json.dumps(rec)}")
+    return rec
+
+
+MESH_G2T = """\
+import sys
+import torch
+from sheep_tpu_torch.cli import graph2tree
+from sheep_tpu_torch.ops import fused_jump
+from sheep_tpu_torch.parallel import mesh
+workers = int(sys.argv.pop(1))
+mesh.mesh_devices = lambda dev: [torch.device("cuda", 0)] * workers
+rc = graph2tree.main(sys.argv[1:])
+import torch.distributed as dist
+print("mesh_job", dist.get_backend(), dist.get_world_size(),
+      fused_jump.launches, file=sys.stderr)
+dist.destroy_process_group()
+sys.exit(rc)
+"""
+
+
+def mesh_nccl_cli(device: torch.device, workers: int = 2) -> dict:
+    """``graph2tree data/hep-th.dat -i -r -f -c`` as a process joined
+    through SHEEP_COORDINATOR at world size 1 (NCCL), with ``workers``
+    mesh workers on the card: the golden TREEFAQS line, ``Tree is
+    valid.``, the NCCL backend and K1 launched in the process."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    env = dict(os.environ, SHEEP_COORDINATOR=coord, SHEEP_NUM_PROCESSES="1",
+               SHEEP_PROCESS_ID="0", SHEEP_WORKERS=str(workers))
+    hep = os.path.join(ROOT, "data", "hep-th.dat")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH_G2T, str(workers), hep, "-i", "-r",
+         "-f", "-c"], capture_output=True, text=True, cwd=ROOT, env=env,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh: graph2tree under SHEEP_COORDINATOR "
+                             f"exited {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+    found = re.findall(r"^mesh_job (\S+) (\d+) (\d+)$", proc.stderr, re.M)
+    backend, world, launches = found[-1][0], int(found[-1][1]), \
+        int(found[-1][2])
+    faqs = proc.stdout[proc.stdout.index("TREEFAQS"):].split(
+        "Tree is")[0] if "TREEFAQS" in proc.stdout else ""
+    rec = {"run": "graph2tree -i -r (SHEEP_COORDINATOR, world size 1)",
+           "W": workers, "backend": backend, "world_size": world,
+           "wall_s": wall, "k1_launches": launches,
+           "golden": faqs == GOLDEN_TREEFAQS,
+           "valid": "Tree is valid." in proc.stdout}
+    log(f"mesh run {json.dumps(rec)}")
+    if backend != "nccl" or world != 1 or launches <= 0 \
+            or not rec["golden"] or not rec["valid"]:
+        raise AssertionError(f"mesh: the NCCL job failed its checks: {rec}")
+    return rec
+
+
+def mesh_phase(device: torch.device, real, small, widths=(2, 4, 8),
+               blocks: int = 4) -> dict:
+    """The sharded mesh build (``parallel/``) on one card, its workers on
+    the card through the ``mesh_devices`` seam, every run equal to the
+    oracle bit for bit: on ``real`` ``build_graph_distributed`` at each
+    of ``widths`` (chunked, unified), the split form and the map-only
+    partials (merged by ``merge_forests_device``) at W = 4, and the
+    resilient build from its mesh rung at W = 4 (checkpoints on, no
+    fault); on ``small`` the single-dispatch twin (SHEEP_MESH_KERNEL=loop)
+    and both mesh streaming builds in ``blocks`` blocks at W = 4; then
+    ``graph2tree -i -r`` joined at world size 1 over NCCL.  Prints one
+    ``mesh`` line."""
+    from sheep_tpu_torch.core.sequence import sequence_positions
+    from sheep_tpu_torch.ops.forest import merge_forests_device
+    from sheep_tpu_torch.parallel import (build_graph_chunked_distributed,
+                                          build_graph_distributed,
+                                          build_graph_streaming_chunked,
+                                          build_graph_streaming_sharded,
+                                          map_graph_distributed)
+
+    t_phase = time.perf_counter()
+    tail, head, want_seq, want = real
+    runs = []
+    for w in widths:
+        runs.append(mesh_run(
+            "build_graph_distributed", w,
+            lambda tm, comm, w=w: build_graph_distributed(
+                tail, head, num_workers=w, device=device, timings=tm,
+                comm=comm), want_seq, want, device))
+    runs.append(mesh_run(
+        "build_graph_chunked_distributed(unified=False)", 4,
+        lambda tm, comm: build_graph_chunked_distributed(
+            tail, head, num_workers=4, device=device, timings=tm, comm=comm,
+            unified=False), want_seq, want, device))
+    merged = {}
+
+    def map_then_merge(tm, comm):
+        seq, parts = map_graph_distributed(tail, head, num_workers=4,
+                                           device=device)
+        t0 = time.perf_counter()
+        merged["forest"] = merge_forests_device(*parts, device=device)
+        merged["merge_s"] = time.perf_counter() - t0
+        merged["partials"] = len(parts)
+        return seq, parts
+
+    rec = mesh_run("map_graph_distributed + merge_forests_device", 4,
+                   map_then_merge, want_seq, want, device,
+                   check=lambda out: len(out[1]) == 4 and forest_equal(
+                       out[0], merged["forest"], want_seq, want))
+    rec["merge_s"] = merged["merge_s"]
+    runs.append(rec)
+    with tempfile.TemporaryDirectory(prefix="sheep-mesh.") as tmp:
+        cfgs = []
+
+        def resilient(tm, comm):
+            seq, forest, cfg = resilient_run(tail, head, device,
+                                             os.path.join(tmp, "ckpt"),
+                                             ladder=MESH_LADDER)
+            cfgs.append(cfg)
+            return seq, forest
+
+        rec = mesh_run("build_graph_resilient (mesh rung)", 4, resilient,
+                       want_seq, want, device)
+    kinds = event_kinds(cfgs[0])
+    ran = [e[1] for e in cfgs[0].events if e[0] == "checkpoint"]
+    if "degrade" in kinds or not ran or ran[-1] not in ("mesh",):
+        raise AssertionError(f"mesh: the resilient build left the mesh rung "
+                             f"with no fault: {cfgs[0].events}")
+    rec["events"] = kinds
+    runs.append(rec)
+    tail, head, want_seq, want = small
+    with env_set({"SHEEP_MESH_KERNEL": "loop"}):
+        runs.append(mesh_run(
+            "build_graph_distributed (SHEEP_MESH_KERNEL=loop)", 4,
+            lambda tm, comm: build_graph_distributed(
+                tail, head, num_workers=4, device=device), want_seq, want,
+            device))
+    m = len(want_seq)
+    pos = sequence_positions(want_seq, int(max(tail.max(), head.max())))
+    block = -(-len(tail) // blocks)
+    for name, fn in (("build_graph_streaming_sharded",
+                      build_graph_streaming_sharded),
+                     ("build_graph_streaming_chunked",
+                      build_graph_streaming_chunked)):
+        rounds = {}
+
+        def stream(tm, comm, fn=fn):
+            forest, rounds["total"] = fn(_blocks(tail, head, block), m, pos,
+                                         block, num_workers=4,
+                                         device=device)
+            return want_seq, forest
+
+        rec = mesh_run(name, 4, stream, want_seq, want, device)
+        rec.update(blocks=blocks, total_rounds=rounds["total"])
+        runs.append(rec)
+    runs.append(mesh_nccl_cli(device))
+    out = {"phase_s": time.perf_counter() - t_phase, "runs": runs}
+    log("mesh " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2218,6 +2450,7 @@ def main() -> int:
     # the default tail's last run (the runs in between are other arms)
     main_run = next(r for r in reversed(real) if r["arm"] == "stream")
     resilient_real(device, real_data, main_run["wall_s"])
+    mesh = mesh_phase(device, real_data, small_data)
     del real_data
     device_phase(device, small_data)
     resilient_faults(device, small_data)
@@ -2238,6 +2471,9 @@ def main() -> int:
         # the first real-size run's K1 calls and their summed device time
         "main_path_calls": real[0]["k1_calls"],
         "main_path_ms": real[0]["k1_device_ms"],
+        # the mesh phase's launches, run by run
+        "mesh_launches": {f"{r['run']} W={r['W']}": r["k1_launches"]
+                          for r in mesh["runs"]},
     }]
     probe_kernels = (
         ("add_one", "add_one_plain", "scripts/pallas_probe.py:42",

@@ -29,14 +29,16 @@ Layout:
               (ops/extmem.py), which is host code and loads no torch
   runtime/    the fault-tolerant build: retry, watchdog, checkpoint and
               resume, the degradation ladder (build_graph_resilient,
-              single -> host -> stream -> ext -> spill)
+              mesh -> single -> host -> stream -> ext -> spill)
   integrity/, resources/, plan/, obs/
               the host layers the runtime stands on: sidecar checksums,
               budgets and retention, the rung planner, the trace
   cli/        the command-line tools (python -m sheep_tpu_torch.cli.<tool>:
               graph2tree, degree_sequence, make_graph, partition_tree,
               merge_trees, fsck, plan)
-  parallel/   the -i/-r build at world size 1 (the hybrid on the card)
+  parallel/   the -i/-r build over a mesh of workers: the Mesh with its
+              collectives over torch.distributed (NCCL on CUDA, gloo on
+              the CPU), the sharded, chunked and streaming mesh builds
   supervisor/ the worker heartbeat
   scripts/    tools: the backend probe (python -m
               sheep_tpu_torch.scripts.kernel_probe)
@@ -46,7 +48,7 @@ Layout:
 
 The host layers are copies of the reference's modules; their notes still
 name reference modules the port has not ported yet (serve/, most of
-supervisor/, ops/distext.py, the sharded parallel/ build), whose queue
+supervisor/, ops/distext.py), whose queue
 is in ROADMAP.md §1 (``QUEUE`` below names each item).
 
 Only the routes that reach the card load torch: the package, ``ops``
@@ -69,10 +71,9 @@ INVALID_PART = -1
 #: reference modules not ported yet, by their ROADMAP.md §1 queue item;
 #: a route that needs one fails with a message naming its item
 QUEUE = {
-    "parallel": "item 1 (parallel/ over torch.distributed)",
-    "distext": "item 2 (ops/distext.py)",
-    "serve": "item 4 (serve/)",
-    "supervisor": "item 5 (supervisor/)",
+    "distext": "item 1 (ops/distext.py)",
+    "serve": "item 3 (serve/)",
+    "supervisor": "item 4 (supervisor/)",
 }
 
 

@@ -15,7 +15,6 @@ import time
 
 import numpy as np
 
-from .. import unported
 from ..runtime.config import RuntimeConfig
 from ..supervisor.heartbeat import maybe_start_from_env
 
@@ -27,14 +26,26 @@ def maybe_start_heartbeat():
     return maybe_start_from_env()
 
 
-def maybe_init_distributed() -> int:
-    """This process's index in a multi-host job: 0 when SHEEP_COORDINATOR
-    is unset.  A multi-host job needs the sharded build, which raises
-    naming its queue item."""
-    if os.environ.get("SHEEP_COORDINATOR"):
-        raise SystemExit(f"SHEEP_COORDINATOR: a multi-host build "
-                         f"{unported('parallel')}")
-    return 0
+def maybe_init_distributed(device) -> int:
+    """Join a multi-process job when the launcher asks for it: the
+    reference's ``mpiexec`` across nodes (README:88-89,
+    data/slurm-uk2007) is SHEEP_COORDINATOR=host:port plus
+    SHEEP_NUM_PROCESSES / SHEEP_PROCESS_ID per process, joined through
+    ``parallel.init_distributed`` (NCCL for a build on CUDA, gloo on the
+    CPU).  Returns this process's rank (0 when not distributed) for
+    leader gating, the reference's rank-0 logic (graph2tree.cpp:158-159).
+    torch loads only when a coordinator is set."""
+    coord = os.environ.get("SHEEP_COORDINATOR")
+    if not coord:
+        return 0
+    from ..parallel.mesh import init_distributed
+    num = os.environ.get("SHEEP_NUM_PROCESSES")
+    pid = os.environ.get("SHEEP_PROCESS_ID")
+    init_distributed(coordinator_address=coord,
+                     num_processes=int(num) if num else None,
+                     process_id=int(pid) if pid else None, device=device)
+    import torch.distributed as dist
+    return dist.get_rank()
 
 
 def runtime_config_from_opts(opts):

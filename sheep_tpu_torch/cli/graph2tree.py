@@ -7,11 +7,16 @@ Routes:
   serial        (no -i, no -r) the native host build, ``build_forest``;
                 ``-l k/w`` loads a record slice, ``-s`` reads or writes
                 the sequence
-  -i / -r       the device: a mesh of one worker is the hybrid build on
-                the card (``parallel.build_graph_distributed``, whose
-                reduce loop launches K1); ``-i`` without ``-r`` and with
-                ``-o`` writes the per-worker partial trees
-                ``{out}NNr0.tre`` instead
+  -i / -r       the device mesh of ``min(SHEEP_WORKERS or devices,
+                devices)`` workers (``parallel.build_graph_distributed``:
+                one worker is the hybrid build, more the chunked sharded
+                build; every worker's rounds launch K1 on the card);
+                ``-i`` without ``-r`` and with ``-o`` writes the
+                per-worker partial trees ``{out}NNr0.tre`` instead.
+                Under SHEEP_COORDINATOR / SHEEP_NUM_PROCESSES /
+                SHEEP_PROCESS_ID the processes join one mesh over
+                ``torch.distributed`` (the reference's ``mpiexec``), and
+                only process 0 prints phase lines and writes files
   --ext         the external-memory build (``ops.extmem``): the serial
                 whole-file ``.dat`` path streamed in blocks, the edge list
                 never loaded; also taken under ``SHEEP_EXT_BLOCK`` or a
@@ -38,8 +43,7 @@ process's RSS, so the two packages must price the same process.
 Routes that need a module the port has not ported yet raise SystemExit
 naming its ROADMAP.md queue item and never fall back to another route:
 the distributed out-of-core build (``--distext``, ``SHEEP_DISTEXT_LEGS``
->= 2, or a budget below the ext rung's floor block), a mesh of more than
-one worker and a multi-host job (``SHEEP_COORDINATOR``).
+>= 2, or a budget below the ext rung's floor block).
 
 ``main(argv, device=None)``: ``device`` is where the card routes run;
 None means CUDA and raises without it.
@@ -106,12 +110,15 @@ def _make_jopts(make_kids, make_pst, make_jxn, memory_limit, width_limit,
                       find_max_width=find_max_width)
 
 
-def _finish_sort(seq, use_mesh_sort, sequence_filename, clock):
+def _finish_sort(seq, use_mesh_sort, sequence_filename, clock,
+                 leader=True, writer=True):
     """Write the sequence when `-i -s` asked for it and print the Sorted
-    phase line per the reference grammar."""
-    if use_mesh_sort and sequence_filename:
+    phase line per the reference grammar.  ``leader``/``writer`` gate the
+    print and the write in a multi-process job (the other processes hold
+    the same replicated results)."""
+    if use_mesh_sort and sequence_filename and writer:
         write_sequence(seq, sequence_filename)
-    if use_mesh_sort or sequence_filename == "":
+    if (use_mesh_sort or sequence_filename == "") and leader:
         print_phase("Sorted", clock.phase_seconds())
 
 
@@ -199,8 +206,17 @@ def main(argv: list[str] | None = None, device=None) -> int:
 
     clock = PhaseClock()
     use_mesh = use_mesh_sort or use_mesh_reduce
+    is_leader = use_mesh or sequence_filename == ""
+    proc0 = True  # this process writes the shared-filesystem outputs
     if use_mesh:
-        maybe_init_distributed()
+        # a multi-process job joins before any device work; only process
+        # 0 leads and writes (the reference's rank-0 logic,
+        # graph2tree.cpp:158-159): every process computes the same
+        # replicated result
+        device = resolve_device(device)
+        if maybe_init_distributed(device) != 0:
+            is_leader = False
+            proc0 = False
 
     jxn_mode = make_kids or make_pst or make_jxn or width_limit or \
         find_max_width
@@ -239,7 +255,6 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if use_mesh or (rt_cfg is not None and not use_ext and not jxn_mode):
         device = resolve_device(device)
 
-    is_leader = use_mesh or sequence_filename == ""
     if verbose:
         print(f"Loading {graph_filename}...")
     if use_mesh and num_parts:
@@ -271,7 +286,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
         else:
             seq = degree_sequence_device(edges.tail, edges.head,
                                          device=device)
-        _finish_sort(seq, use_mesh_sort, sequence_filename, clock)
+        _finish_sort(seq, use_mesh_sort, sequence_filename, clock,
+                     leader=is_leader, writer=proc0)
         jopts = _make_jopts(make_kids, make_pst, make_jxn, memory_limit,
                             width_limit, find_max_width)
         forest, seq, widths = build_forest_jxn(
@@ -282,18 +298,26 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 print_phase("Reduced", clock.phase_seconds())
     elif use_mesh:
         from ..ops.sort import degree_sequence_device
-        from ..parallel.build import (build_graph_distributed, device_count,
+        from ..parallel.build import (build_graph_distributed,
                                       map_graph_distributed)
-        count = device_count(device)
+        from ..parallel.mesh import mesh_size, process_count
+        count = mesh_size(device)
+        # SHEEP_WORKERS fixes the logical worker count; the mesh is capped
+        # by the devices, and the merged result is the same for any size
         workers = int(os.environ.get("SHEEP_WORKERS") or 0) or count
         mesh_workers = min(workers, count)
+        multi = process_count() > 1
+        if multi:
+            # a multi-process mesh spans every process's devices
+            mesh_workers = count
         given_seq = None
         if not use_mesh_sort and sequence_filename:
             given_seq = read_sequence(sequence_filename)
         # -i without -r: save exactly `workers` partial trees for the
         # file-path merge (%02dr0.tre names).  A worker count that fits
-        # the cards builds them on the card; more workers than cards
-        # build partial_range slices on the host, as the reference does
+        # the mesh builds them on the devices; more workers than devices
+        # (or, across processes, any count but the whole mesh) build
+        # partial_range slices on the host, as the reference does
         map_only = (use_mesh_sort and not use_mesh_reduce
                     and output_filename != "" and partitions == 0)
         if map_only:
@@ -302,19 +326,19 @@ def main(argv: list[str] | None = None, device=None) -> int:
             else:
                 seq = degree_sequence_device(edges.tail, edges.head,
                                              device=device)
-            _finish_sort(seq, use_mesh_sort, sequence_filename, clock)
+            _finish_sort(seq, use_mesh_sort, sequence_filename, clock,
+                         leader=is_leader, writer=proc0)
             max_vid = edges.max_vid
-            if workers <= count and len(edges.tail):
-                try:
-                    _, partials = map_graph_distributed(
-                        edges.tail, edges.head, num_workers=workers,
-                        seq=seq, device=device)
-                except NotImplementedError as exc:
-                    raise SystemExit(f"graph2tree: {exc}")
-                sig = _tree_sig(seq)
-                for w, f in enumerate(partials):
-                    write_tree(f"{output_filename}{w:02d}r0.tre",
-                               f.parent, f.pst_weight, sig=sig)
+            mesh_ok = not multi or workers == count
+            if workers <= count and len(edges.tail) and mesh_ok:
+                _, partials = map_graph_distributed(
+                    edges.tail, edges.head, num_workers=workers,
+                    seq=seq, device=device)
+                if proc0:
+                    sig = _tree_sig(seq)
+                    for w, f in enumerate(partials):
+                        write_tree(f"{output_filename}{w:02d}r0.tre",
+                                   f.parent, f.pst_weight, sig=sig)
                 # -f/-c/-t report worker 0's partial view, like the
                 # reference's rank 0 with its partial graph load
                 forest = partials[0]
@@ -327,11 +351,16 @@ def main(argv: list[str] | None = None, device=None) -> int:
                     a, b = partial_range(edges.num_edges, w + 1, workers)
                     f = build_forest(edges.tail[a:b], edges.head[a:b], seq,
                                      max_vid=max_vid)
-                    write_tree(f"{output_filename}{w:02d}r0.tre",
-                               f.parent, f.pst_weight, sig=sig)
+                    if proc0:
+                        write_tree(f"{output_filename}{w:02d}r0.tre",
+                                   f.parent, f.pst_weight, sig=sig)
                     if forest is None:
                         forest = f
                         a0, b0 = a, b
+                    if not proc0:
+                        # another process: no collectives here and no
+                        # writes, only worker 0's view for -f/-t/-c
+                        break
             edges = EdgeList(edges.tail[a0:b0], edges.head[a0:b0],
                              file_edges=edges.file_edges, start=a0)
         elif rt_cfg is not None:
@@ -340,15 +369,14 @@ def main(argv: list[str] | None = None, device=None) -> int:
                 edges.tail, edges.head, num_workers=mesh_workers,
                 seq=given_seq, max_vid=edges.max_vid, config=rt_cfg,
                 device=device)
-            _finish_sort(seq, use_mesh_sort, sequence_filename, clock)
+            _finish_sort(seq, use_mesh_sort, sequence_filename, clock,
+                         leader=is_leader, writer=proc0)
         else:
-            try:
-                seq, forest = build_graph_distributed(
-                    edges.tail, edges.head, num_workers=mesh_workers,
-                    seq=given_seq, device=device)
-            except NotImplementedError as exc:
-                raise SystemExit(f"graph2tree: {exc}")
-            _finish_sort(seq, use_mesh_sort, sequence_filename, clock)
+            seq, forest = build_graph_distributed(
+                edges.tail, edges.head, num_workers=mesh_workers,
+                seq=given_seq, device=device)
+            _finish_sort(seq, use_mesh_sort, sequence_filename, clock,
+                         leader=is_leader, writer=proc0)
         if is_leader:
             print_phase("Mapped", clock.phase_seconds())
             if use_mesh_reduce:
@@ -412,22 +440,25 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if partitions != 0:
         p = Partition.from_forest(seq, forest, partitions, max_vid=max_vid)
         if output_filename:
-            prefix = output_filename + ("-w0000-p" if use_mesh_reduce else "")
-            p.write_partitioned_graph(edges.tail, edges.head, seq, prefix,
-                                      max_vid=max_vid)
+            if proc0:
+                prefix = output_filename + \
+                    ("-w0000-p" if use_mesh_reduce else "")
+                p.write_partitioned_graph(edges.tail, edges.head, seq,
+                                          prefix, max_vid=max_vid)
         elif is_leader:
             p.print()
-    elif output_filename and not map_only:
+    elif output_filename and not map_only and proc0:
         write_tree(output_filename, forest.parent, forest.pst_weight,
                    sig=_tree_sig(seq))
 
-    if verbose:
+    # diagnostics print from process 0 only in a multi-process job
+    if verbose and proc0:
         print_phase("Built", clock.total_seconds())
-    if do_faqs:
+    if do_faqs and proc0:
         compute_facts(forest, widths=widths).print()
-    if do_print:
+    if do_print and proc0:
         print_tree(seq, forest.parent, forest.pst_weight)
-    if do_validate:
+    if do_validate and proc0:
         if edges is None:
             print("warning: -c needs the in-RAM edge list; skipped under "
                   "the external-memory build", file=sys.stderr)
@@ -436,7 +467,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
             print("Tree is valid.")
         else:
             print("ERROR: Tree is not valid.")
-    if verbose:
+    if verbose and proc0:
         print_phase("Finished", clock.total_seconds())
     return 0
 

@@ -23,7 +23,12 @@ _LAZY = {
     "forest_fixpoint": "forest",
     "forest_fixpoint_hosted": "forest",
     "reduce_links_hosted": "forest",
+    "links_from_parent": "forest",
+    "merge_parents": "forest",
+    "build_forest_device": "forest",
+    "merge_forests_device": "forest",
     # .build
+    "build_step": "build",
     "build_graph_device": "build",
     "build_graph_hybrid": "build",
     # .stream

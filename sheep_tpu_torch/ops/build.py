@@ -50,11 +50,25 @@ import torch
 from .. import resolve_device
 from ..convert import edges_to_device
 from ..core.forest import Forest
-from .forest import (_i32, _np, _to_forest, forest_fixpoint_hosted,
-                     pack_links_6b, parent_from_links, pst_weights,
-                     reduce_links_hosted, sort_links_by_hi, unpack_links_6b)
+from .forest import (_i32, _np, _to_forest, forest_fixpoint,
+                     forest_fixpoint_hosted, pack_links_6b,
+                     parent_from_links, pst_weights, reduce_links_hosted,
+                     sort_links_by_hi, unpack_links_6b)
 from .sort import (degree_histogram, degree_order, edge_links,
                    given_seq_links)
+
+
+def build_step(tail: torch.Tensor, head: torch.Tensor, n: int):
+    """The whole forward step on edge records (int32 [E]) over n vid
+    slots: degree histogram, (degree, vid) sort, link mapping, the
+    forest fixpoint, pst.  Returns (seq, pos, num_active, parent, pst,
+    rounds): int32, length n but the scalars; zero-degree vids sit at
+    the tail as roots with pst 0, and ``parent[v] == n`` marks roots."""
+    deg = degree_histogram(tail, head, n)
+    seq, pos, m = degree_order(deg)
+    lo, hi = edge_links(tail, head, pos, n)
+    parent, rounds = forest_fixpoint(lo, hi, n)
+    return seq, pos, m, parent, pst_weights(lo, n), rounds
 
 
 def prepare_links(tail: torch.Tensor, head: torch.Tensor, n: int,

@@ -666,6 +666,69 @@ def pst_weights(lo: torch.Tensor, n: int) -> torch.Tensor:
     return out[:n]
 
 
+def links_from_parent(parent: torch.Tensor, n: int):
+    """A forest's (kid -> parent) pairs as sentinel-padded link arrays
+    (int32 [n] each, roots at the sentinel n)."""
+    kid = torch.arange(n, dtype=torch.int32, device=parent.device)
+    live = parent < n
+    return (torch.where(live, kid, n).to(torch.int32),
+            torch.where(live, _i32(parent), n).to(torch.int32))
+
+
+def merge_parents(parents: torch.Tensor, psts: torch.Tensor, n: int):
+    """Merge k same-sequence partial forests (the reference's
+    lib/jnode.cpp:174-250 merge): every partial's (kid -> parent) links
+    through one fixpoint.  parents int32 [k, n] with n marking roots,
+    psts int32 [k, n].  Returns (parent int32 [n], pst int32 [n],
+    rounds)."""
+    k = parents.shape[0]
+    kid = torch.arange(n, dtype=torch.int32,
+                       device=parents.device).expand(k, n)
+    live = parents < n
+    lo = torch.where(live, kid, n).to(torch.int32).reshape(-1)
+    hi = torch.where(live, _i32(parents), n).to(torch.int32).reshape(-1)
+    parent, rounds = forest_fixpoint(lo, hi, n)
+    return parent, psts.sum(dim=0, dtype=torch.int32), rounds
+
+
+def build_forest_device(tail: np.ndarray, head: np.ndarray, seq: np.ndarray,
+                        max_vid: int | None = None, device=None) -> Forest:
+    """Device-built Forest from raw edge records over a given sequence
+    (the reference's test and CLI entry point).  ``device`` None is
+    CUDA."""
+    from .. import resolve_device
+    from ..core.forest import edges_to_positions
+
+    device = resolve_device(device)
+    lo, hi = edges_to_positions(tail, head, seq, max_vid)
+    n = len(seq)
+    # pst-only links (hi = INVALID: an edge to a vertex absent from the
+    # sequence) count toward pst but are sentineled out of the fixpoint
+    pst_only = hi >= n
+    lo_d = torch.from_numpy(lo.astype(np.int32)).to(device)
+    pst = pst_weights(lo_d, n)
+    live_lo = torch.from_numpy(np.where(pst_only, n, lo).astype(np.int32))
+    live_hi = torch.from_numpy(np.where(pst_only, n, hi).astype(np.int32))
+    parent, _ = forest_fixpoint(live_lo.to(device), live_hi.to(device), n)
+    return _to_forest(parent, pst, n)
+
+
+def merge_forests_device(*forests: Forest, device=None) -> Forest:
+    """Device merge of host Forests (equal to core.merge_forests).
+    ``device`` None is CUDA."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
+    n = forests[0].n
+    parents = np.stack([
+        np.where(f.parent == INVALID_JNID, n, f.parent.astype(np.int64))
+        for f in forests]).astype(np.int32)
+    psts = np.stack([f.pst_weight.astype(np.int32) for f in forests])
+    parent, pst, _ = merge_parents(torch.from_numpy(parents).to(device),
+                                   torch.from_numpy(psts).to(device), n)
+    return _to_forest(parent, pst, n)
+
+
 def _to_forest(parent, pst, n: int) -> Forest:
     """Host Forest from device (or numpy) parent/pst over n slots."""
     parent = _np(parent).astype(np.int64)

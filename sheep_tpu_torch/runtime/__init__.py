@@ -9,8 +9,8 @@ Four modules, layered bottom-up:
   retry.py     retry-with-backoff + adaptive round-count shrinking, and
                the watchdog that syncs a dispatch on a CUDA event
   config.py    the build's knobs, ``RuntimeConfig``
-  driver.py    checkpointed build driver + the single -> host -> stream
-               -> ext -> spill graceful-degradation ladder,
+  driver.py    checkpointed build driver + the mesh -> single -> host
+               -> stream -> ext -> spill graceful-degradation ladder,
                ``build_graph_resilient(..., device=None)``
 
 See driver.py's docstring for the failure model and the determinism

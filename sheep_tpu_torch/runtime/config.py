@@ -17,11 +17,9 @@ class RuntimeConfig:
     SHEEP_RESUME/SHEEP_MAX_RETRIES and friends, read by
     :meth:`from_env`).
 
-    ``ladder`` keeps the reference's default tuple, but the port runs
-    only the rungs it has ported (the driver's ``_RUNGS``: single, host,
-    stream, ext, spill): the planner's ``known=`` filter drops "mesh"
-    (it waits for the port of ``parallel/``) wherever a ladder names
-    it."""
+    ``ladder`` keeps the reference's default tuple; the build drops
+    "mesh" where fewer than two mesh workers exist and "ext" without a
+    whole-input ``.dat``, as the reference's does."""
 
     checkpoint_dir: str | None = None
     resume: bool = False
@@ -42,8 +40,10 @@ class RuntimeConfig:
     #: aborts the resume with a typed IntegrityError; repair: it is
     #: discarded and the build restarts fresh — never resumed into garbage.
     integrity: str | None = None
-    #: degradation ladder, tried in order.  "single" is the hosted chunk
-    #: loop on the build's device; "host" is the exact native
+    #: degradation ladder, tried in order.  "mesh" is the chunked
+    #: sharded reduce over the mesh's workers (skipped when fewer than
+    #: two exist); "single" is the hosted chunk loop on the build's
+    #: device; "host" is the exact native
     #: union-find; "stream" folds the SAME in-RAM link table through the
     #: resumable native union-find one hi-quantile window at a time —
     #: O(n + window) beyond the input, no int64 cast, no scratch file;

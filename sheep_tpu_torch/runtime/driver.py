@@ -14,28 +14,30 @@ dispatches survivable:
                         with ``resume=True`` continues from the last
                         completed chunk and produces the bit-identical
                         tree (forest = f(threshold connectivity) only).
-  sick card             the degradation ladder: single-card chunked ->
-                        host union-find (host, stream, ext, spill), on an
-                        injected fault, a watchdog deadline or memory
-                        exhaustion (faults.degradable).  A kernel fault
-                        on the card is retried on its rung and then
-                        fails the build: it is never finished on the
-                        host in the card's place.  Every
-                        rung consumes the previous rung's checkpoint,
-                        because all rungs reduce the same link multiset
-                        over the same sequence — the associativity that
-                        powers the reference's tree merge
-                        (lib/jnode.cpp:174-201) is exactly what makes
-                        partial state transportable across rungs.
+  sick card             the degradation ladder: mesh-chunked ->
+                        single-card chunked -> host union-find (host,
+                        stream, ext, spill), on an injected fault, a
+                        watchdog deadline or memory exhaustion
+                        (faults.degradable).  A kernel fault on the card
+                        is retried on its rung and then fails the build:
+                        it is never finished elsewhere in the card's
+                        place.  Every rung consumes the previous rung's
+                        checkpoint, because all rungs reduce the same
+                        link multiset over the same sequence — the
+                        associativity that powers the reference's tree
+                        merge (lib/jnode.cpp:174-201) is exactly what
+                        makes partial state transportable across rungs.
 
-On the card.  The ``single`` rung runs the port's hosted reduce loop on
-the build's device, so on CUDA every chunk's descent goes through kernel
-K1.  Once it has failed, nothing touches the card again: the host rungs
-and the driver's tail work on the host ``lo``/``hi`` the driver holds or
-on the checkpoint (a sticky CUDA error, such as an illegal address,
-poisons every later CUDA call in the process).  A hung kernel cannot be
-abandoned on CUDA, so a watchdog timeout on the card gives the rung up
-(runtime/faults.py DeviceHung) and recovery is the ``host`` rung.
+On the card.  The ``mesh`` rung runs the chunked sharded reduce
+(parallel/chunked.py) over the workers of ``parallel.make_mesh`` and the
+``single`` rung the hosted reduce loop, both on the build's device, so on
+CUDA every chunk's descent goes through kernel K1.  After a card rung
+has failed the next rung takes over from the host ``lo``/``hi`` the
+driver holds or from the checkpoint.  A hung kernel cannot be abandoned
+on CUDA, so a watchdog timeout on the card gives the rung up
+(runtime/faults.py DeviceHung) and the ladder skips the card rungs left:
+recovery is the ``host`` rung, and the host rungs touch the card no
+more.
 
 Determinism: pst is order-free and counted once at prep; the parent array
 is the unique elimination forest of the link multiset, so ANY interleaving
@@ -61,8 +63,8 @@ from ..plan.model import (DEFAULT_LADDER, PROV_LEARNED, available_rungs,
                           plan_build)
 from ..resources.governor import (NATIVE_THREADS_ENV, ResourceGovernor,
                                   rss_bytes)
-from .faults import (degradable, fault_point, is_retryable,
-                     reset_counters)
+from .faults import (DeviceHung, RetryBudgetExhausted, degradable,
+                     fault_point, is_retryable, reset_counters)
 from .config import RuntimeConfig
 from .retry import RetryPolicy, run_with_retry
 from .snapshot import Checkpointer, Snapshot, input_signature
@@ -79,7 +81,8 @@ class ChunkRuntime:
     injection policy; ``boundary`` checkpoints the live link multiset at a
     completed chunk and is itself a fault-injection site ("boundary" —
     the kill point of the resume property test).  ``device`` is the
-    build's device, on which the ``single`` rung runs the loop.
+    build's device (None is CUDA, as every entry point's), on which the
+    ``mesh`` and ``single`` rungs run.
     """
 
     def __init__(self, policy: RetryPolicy, checkpointer: Checkpointer | None,
@@ -95,7 +98,7 @@ class ChunkRuntime:
         self.events = events
         #: resource budgets: None = unbudgeted (every check is a no-op)
         self.governor = governor
-        self.device = device if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         #: the whole-input .dat file, when one exists (the ext rung's
         #: source; RuntimeConfig.edges_path)
         self.edges_path = edges_path
@@ -220,12 +223,34 @@ class ChunkRuntime:
 
 # ---------------------------------------------------------------------------
 # Ladder rungs.  Contract: (lo, hi int32 live links, n, runtime,
-# num_workers) -> parent array; int32 with n marking roots (the single
-# rung) or uint32 with INVALID_JNID (host rungs) — both normalized by the
-# driver.  All rungs reduce the same link multiset, so any rung may pick
-# up any other rung's checkpoint.  Only the single rung touches the
-# device; the host rungs take numpy links and never touch CUDA.
+# num_workers) -> parent array; int32 with n marking roots (the card
+# rungs) or uint32 with INVALID_JNID (host rungs) — both normalized by
+# build_graph_resilient.  All rungs reduce the same link multiset, so any rung may
+# pick up any other rung's checkpoint.  Only the mesh and single rungs
+# touch the device; the host rungs take numpy links and never touch CUDA.
 # ---------------------------------------------------------------------------
+
+
+#: the rungs that run on the build's device
+_CARD_RUNGS = ("mesh", "single")
+
+
+def _rung_mesh(lo, hi, n, rt, num_workers):
+    """The chunked sharded reduce over a mesh of ``min(num_workers or
+    all, all)`` workers on the build's device (on CUDA each worker's
+    descent runs through kernel K1), under ``rt``'s retry policy, with
+    the gathered link multiset checkpointed at each chunk boundary."""
+    from ..parallel.build import _fetch
+    from ..parallel.chunked import (_extract_parent, reduce_links_sharded,
+                                    stage_edges_2d)
+    from ..parallel.mesh import make_mesh, mesh_size
+
+    total = mesh_size(rt.device)
+    mesh = make_mesh(min(num_workers or total, total), rt.device)
+    lo2d, hi2d = stage_edges_2d(lo, hi, n, mesh)
+    slo, shi, _, gathered = reduce_links_sharded(
+        lo2d, hi2d, n, mesh, global_f=True, runtime=rt)
+    return _fetch(_extract_parent(slo, shi, n, mesh, gathered))
 
 
 def _rung_single(lo, hi, n, rt, num_workers):
@@ -379,8 +404,7 @@ def _rung_spill(lo, hi, n, rt, num_workers):
         shutil.rmtree(scratch, ignore_errors=True)
 
 
-#: the rungs the port runs; "mesh" waits for the port of parallel/
-_RUNGS = {"single": _rung_single, "host": _rung_host,
+_RUNGS = {"mesh": _rung_mesh, "single": _rung_single, "host": _rung_host,
           "stream": _rung_stream, "ext": _rung_ext, "spill": _rung_spill}
 
 
@@ -406,14 +430,23 @@ def _native_threads_env(tplan: dict):
             os.environ[NATIVE_THREADS_ENV] = prev
 
 
+def _hung(exc: BaseException) -> bool:
+    """Whether a rung failed on a hang on the card (a DeviceHung, or a
+    retry budget the hang spent)."""
+    return isinstance(exc, DeviceHung) or (
+        isinstance(exc, RetryBudgetExhausted)
+        and isinstance(exc.__cause__, DeviceHung))
+
+
 def _ladder_rungs(config: RuntimeConfig, num_workers,
                   device: torch.device) -> list[str]:
     # availability routes through the planner: the device count is the
-    # CUDA card count on CUDA and 1 on the CPU, ``known`` keeps the mesh
-    # rung (not ported yet) out of the ladder, and ext stays only with a
-    # whole-input .dat
-    devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    return available_rungs(config.ladder, devices, num_workers,
+    # mesh's (parallel.mesh_size: the cards on CUDA, 1 on the CPU, times
+    # the processes of the job), so mesh stays only where two or more
+    # workers exist, and ext only with a whole-input .dat
+    from ..parallel.mesh import mesh_size
+
+    return available_rungs(config.ladder, mesh_size(device), num_workers,
                            config.edges_path, known=_RUNGS)
 
 
@@ -570,9 +603,13 @@ def build_graph_resilient(tail, head, num_vertices=None, num_workers=None,
             # cheaper rung is the recovery); disk exhaustion propagates
             # (the next rung would hit the same full disk — the run
             # aborts typed and resumable instead), and so does a kernel
-            # fault on the card (faults.degradable).  From here on
-            # nothing touches the card: the next rungs take the host
-            # links held here or the checkpoint's.
+            # fault on the card (faults.degradable).  The next rung
+            # takes the host links held here or the checkpoint's; after
+            # a hang on the card (DeviceHung) no card rung runs again.
+            if _hung(exc) and rung in _CARD_RUNGS:
+                # in place: the loop's iterator reads the same list
+                rungs[i + 1:] = [r for r in rungs[i + 1:]
+                                 if r not in _CARD_RUNGS]
             if not degradable(exc) or i + 1 >= len(rungs):
                 raise
             events.append(("degrade", rung, rungs[i + 1],

@@ -103,6 +103,17 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
     _K("SHEEP_WORKERS", "int", "devices",
        "mesh",
        "worker count of the fused SPMD build (default: visible devices)"),
+    _K("SHEEP_MESH_KERNEL", "str", "chunked",
+       "mesh", "mesh build kernel: chunked or fused"),
+    _K("SHEEP_MESH_GATHER_TAIL", "flag", "1",
+       "mesh", "gather the mesh tail for the replicated finish"),
+    _K("SHEEP_MESH_GATHER_FACTOR", "float", "2.0",
+       "mesh", "live-links factor below which the mesh tail gathers"),
+    _K("SHEEP_MESH_TAIL_SHARD", "flag", "1",
+       "mesh", "shard the gathered tail by hi-quantile windows before "
+       "the replicated finish"),
+    _K("SHEEP_MESH_TAIL_SHARD_ROUNDS", "int", "5",
+       "mesh", "max sharded tail rounds before falling back replicated"),
     _K("SHEEP_PIPELINE_CHUNKS", "flag", "1",
        "mesh",
        "pipelined (async) chunk dispatch in the chunk loops"),
@@ -205,6 +216,12 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
     _K("SHEEP_COORDINATOR", "str", "",
        "dist",
        "jax.distributed coordinator address"),
+    _K("SHEEP_NUM_PROCESSES", "int", "",
+       "dist", "process count of the multi-process mesh"),
+    _K("SHEEP_PROCESS_ID", "int", "",
+       "dist", "this process's index in the multi-process mesh"),
+    _K("SHEEP_CONNECT_TIMEOUT", "float", "60",
+       "dist", "coordinator connect timeout seconds"),
     # -- partition ---------------------------------------------------------
     _K("SHEEP_DDUP_GRAPH", "flag", "0",
        "partition",

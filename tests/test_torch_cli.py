@@ -13,15 +13,21 @@ modules came over, are held against the reference the same way
 (``test_ext_and_jxn_routes_equal_reference``; a memory budget routes by
 the headroom over the process's RSS, so those cases pin the RSS both
 packages read).  The ``plan`` tool is held against the reference's
-(``test_plan_equals_reference``).  Routes the port has not ported raise
-SystemExit naming their ROADMAP.md queue item, and never fall back to
-another route (``test_unported_route_raises``).
+(``test_plan_equals_reference``).  The device routes on a mesh of more
+than one worker run the reference on that many CPU devices and the port
+on that many CPU workers (``test_mesh_route_equals_reference``); a job
+of one process joins through SHEEP_COORDINATOR
+(``test_coordinator_joins_a_job_of_one``; two processes are
+tests/test_torch_distributed.py's).  Routes the port has not ported
+raise SystemExit naming their ROADMAP.md queue item, and never fall back
+to another route (``test_unported_route_raises``).
 """
 
 import contextlib
 import io
 import os
 import re
+import socket
 import subprocess
 import sys
 
@@ -35,15 +41,16 @@ HEP = os.path.join(REPO, "data", "hep-th.dat")
 _VOLATILE = (".hb",)
 
 
-def ref_env(extra: dict) -> dict:
+def ref_env(extra: dict, devices: int = 1) -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["JAX_PLATFORMS"] = "cpu"
-    # one CPU device: a mesh of one worker, as on one card
+    # one CPU device by default: a mesh of one worker, as on one card
     flags = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
                    env.get("XLA_FLAGS", ""))
-    env["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=1"
-                        ).strip()
+    env["XLA_FLAGS"] = (
+        flags + f" --xla_force_host_platform_device_count={devices}"
+    ).strip()
     for k in [k for k in env if k.startswith("SHEEP_")]:
         del env[k]
     env.update(extra)
@@ -57,9 +64,10 @@ def stable_lines(out: str) -> list:
 
 
 def run_ref(tool: str, argv: list, env: dict, cwd: str,
-            rss: int | None = None):
-    """The reference's tool as a subprocess; ``rss`` pins the RSS its
-    governor reads (``resources.governor.rss_bytes``)."""
+            rss: int | None = None, devices: int = 1):
+    """The reference's tool as a subprocess on ``devices`` CPU devices;
+    ``rss`` pins the RSS its governor reads
+    (``resources.governor.rss_bytes``)."""
     if rss is None:
         cmd = ["-m", f"sheep_tpu.cli.{tool}"]
     else:
@@ -70,7 +78,7 @@ def run_ref(tool: str, argv: list, env: dict, cwd: str,
                "sys.exit(main(sys.argv[1:]))\n"]
     proc = subprocess.run(
         [sys.executable] + cmd + argv, capture_output=True, text=True,
-        timeout=300, env=ref_env(env), cwd=cwd)
+        timeout=300, env=ref_env(env, devices), cwd=cwd)
     return proc.returncode, proc.stdout, proc.stderr
 
 
@@ -256,14 +264,20 @@ CASES = {
 }
 
 
-def _run_steps(tmp_path, steps, rss=None, monkeypatch=None):
+def _run_steps(tmp_path, steps, rss=None, monkeypatch=None, devices=1):
     """Run ``steps`` through both packages in directories of their own and
     hold stdout, exit codes and the files they leave equal; returns the
     port's files.  ``rss`` pins the RSS both governors read (the
-    reference's in its subprocess, the port's here)."""
+    reference's in its subprocess, the port's here).  ``devices``: the
+    reference's CPU devices and the port's CPU mesh workers
+    (``parallel.mesh.mesh_devices`` patched)."""
     if rss is not None:
         from sheep_tpu_torch.resources import governor
         monkeypatch.setattr(governor, "rss_bytes", lambda: rss)
+    if devices != 1:
+        from sheep_tpu_torch.parallel import mesh
+        monkeypatch.setattr(mesh, "mesh_devices",
+                            lambda device: [torch.device("cpu")] * devices)
     dirs = {}
     for side in ("ref", "port"):
         d = tmp_path / side
@@ -276,7 +290,7 @@ def _run_steps(tmp_path, steps, rss=None, monkeypatch=None):
             continue
         rc, out, err = run_ref(tool, argv, {k: v.format(d=dirs["ref"])
                                             for k, v in env.items()},
-                               dirs["ref"], rss=rss)
+                               dirs["ref"], rss=rss, devices=devices)
         prc, pout = run_port(tool, argv, {k: v.format(d=dirs["port"])
                                           for k, v in env.items()},
                              dirs["port"])
@@ -458,11 +472,6 @@ UNPORTED = {
                     "distext"),
     "distext_budget": (["-o", "t.tre"], {"SHEEP_MEM_BUDGET": "2G"},
                        "distext"),
-    "coordinator": (["-i", "-r"], {"SHEEP_COORDINATOR": "localhost:1"},
-                    "parallel"),
-    "mesh_of_two": (["-i", "-r", "-f"], {"SHEEP_WORKERS": "2"}, "parallel"),
-    "map_mesh_of_two": (["-i", "-o", "P"], {"SHEEP_WORKERS": "2"},
-                        "parallel"),
 }
 
 
@@ -472,7 +481,6 @@ def test_unported_route_raises(tmp_path, monkeypatch, case):
     it writes anything; none falls back to another route."""
     from sheep_tpu_torch import QUEUE
     from sheep_tpu_torch.cli import graph2tree
-    from sheep_tpu_torch.parallel import build as pbuild
     from sheep_tpu_torch.resources import governor
 
     argv, env, key = UNPORTED[case]
@@ -482,15 +490,79 @@ def test_unported_route_raises(tmp_path, monkeypatch, case):
         rss = governor.rss_bytes()
         env = {"SHEEP_MEM_BUDGET": str(rss + (1 << 19))}
         monkeypatch.setattr(governor, "rss_bytes", lambda: rss)
-    if env.get("SHEEP_WORKERS") == "2":
-        # two cards: the mesh the port cannot run yet
-        monkeypatch.setattr(pbuild, "device_count", lambda device: 2)
     monkeypatch.chdir(tmp_path)
     with port_env(env), pytest.raises(SystemExit) as exc:
         graph2tree.main([HEP, *argv], device="cpu")
     msg = str(exc.value.code)
     assert QUEUE[key] in msg and "ROADMAP.md" in msg, msg
     assert os.listdir(tmp_path) == []
+
+
+#: the device routes on a mesh of more than one worker: id -> (CPU
+#: devices of the reference, CPU workers of the port, steps)
+MESH_CASES = {
+    "mesh_of_two": (2, [G("-i", "-r", "-f", "-c", "-o", "t.tre",
+                          env={"SHEEP_WORKERS": "2"})]),
+    "map_mesh_of_two": (2, [G("-i", "-s", "i.seq", "-o", "P", "-f", "-c",
+                              env={"SHEEP_WORKERS": "2"})]),
+    "mesh_of_three": (3, [G("-i", "-r", "-f", "-o", "t.tre")]),
+    "workers_capped_by_devices": (2, [G("-i", "-r", "-f", "-o", "t.tre",
+                                        env={"SHEEP_WORKERS": "8"})]),
+    "map_more_workers_than_devices": (
+        2, [G("-i", "-s", "i.seq", "-o", "P", "-f",
+              env={"SHEEP_WORKERS": "3"})]),
+    "mesh_given_seq": (2, [SEQ, G("-r", "-s", "s.seq", "-o", "t.tre",
+                                  "-f")]),
+    "mesh_loop_kernel": (2, [G("-i", "-r", "-f", "-o", "t.tre",
+                               env={"SHEEP_MESH_KERNEL": "loop"})]),
+    "mesh_partition_write": (2, [G("-i", "-r", "-p", "2", "-o", "part")]),
+    "mesh_checkpoint": (2, [G("-i", "-r", "--checkpoint-dir", "ck", "-o",
+                              "t.tre", "-f")]),
+    "mesh_merge_partials": (3, [G("-i", "-s", "i.seq", "-o", "i"),
+                                T("merge_trees", "i00r0.tre", "i01r0.tre",
+                                  "i02r0.tre", "-o", "i.tre", "-f")]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_mesh_route_equals_reference(tmp_path, monkeypatch, case):
+    """A mesh of more than one worker (the reference on that many CPU
+    devices, the port on that many CPU workers): the same stdout, exit
+    codes and file bytes, the map route's per-worker partial trees
+    included."""
+    devices, steps = MESH_CASES[case]
+    got = _run_steps(tmp_path, steps, monkeypatch=monkeypatch,
+                     devices=devices)
+    if case.startswith("map_mesh"):
+        assert sorted(k for k in got if k.endswith("r0.tre")) == \
+            ["P00r0.tre", "P01r0.tre"]
+
+
+def test_coordinator_joins_a_job_of_one(tmp_path):
+    """SHEEP_COORDINATOR with one process: graph2tree joins the job
+    (gloo at world size 1 on the CPU) and builds the tree the serial
+    route builds, byte for byte."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    env = ref_env({"SHEEP_COORDINATOR": coord, "SHEEP_NUM_PROCESSES": "1",
+                   "SHEEP_PROCESS_ID": "0"})
+    prog = ("import sys\n"
+            "from sheep_tpu_torch.cli.graph2tree import main\n"
+            "sys.exit(main(sys.argv[1:], device='cpu'))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", prog, HEP, "-i", "-r", "-f", "-o", "d.tre"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "Mapped in:" in proc.stdout
+    rc, out, err = run_ref("graph2tree", [HEP, "-f", "-o", "s.tre"], {},
+                           str(tmp_path))
+    assert rc == 0, err
+    assert (tmp_path / "d.tre").read_bytes() == \
+        (tmp_path / "s.tre").read_bytes()
+    assert [ln for ln in proc.stdout.splitlines() if "TREEFAQS" in ln] == \
+        [ln for ln in out.splitlines() if "TREEFAQS" in ln]
 
 
 def test_device_routes_need_cuda_unless_named(tmp_path):

@@ -9,7 +9,9 @@ and resume, a real CUDA out-of-memory error and a watchdog on a held
 dispatch, each degrading to the host rung, and the watchdog's stream;
 a degrade from the single rung to the external-memory rung), and
 ``graph2tree -i -r`` on hep-th, the user's entry point to K1, also in
-the treewidth mode.
+the treewidth mode, and the sharded mesh build with its workers on the
+card (``parallel.mesh.mesh_devices`` patched), its map-only partials and
+the resilient build's mesh rung.
 
 Marked ``cuda``; each test skips without a CUDA device (the kernels are
 CUDA kernels with no CPU or interpret mode).  This file imports no jax, so it
@@ -595,3 +597,86 @@ def test_cuda_resilient_degrades_single_to_ext(cuda, tmp_path):
     np.testing.assert_array_equal(seq, want_seq)
     np.testing.assert_array_equal(forest.parent, want.parent)
     np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+
+
+@pytest.fixture
+def card_workers(monkeypatch):
+    """``use(w)`` gives the port's mesh w workers on the one card, through
+    the seam ``parallel.mesh.mesh_devices``."""
+    from sheep_tpu_torch.parallel import mesh
+
+    def use(w):
+        monkeypatch.setattr(mesh, "mesh_devices",
+                            lambda device: [torch.device("cuda", 0)] * w)
+    return use
+
+
+@pytest.mark.parametrize("kernel", ["chunked", "loop"])
+@pytest.mark.parametrize("w", [2, 3])
+def test_cuda_mesh_build_equals_oracle(cuda, card_workers, monkeypatch, w,
+                                       kernel):
+    """The sharded mesh build with its workers on the card: the forest is
+    the oracle's, and on the chunked kernel every worker's rounds
+    launched K1; the map-only partials merge on the card to the tree."""
+    from sheep_tpu_torch.ops.forest import merge_forests_device
+    from sheep_tpu_torch.parallel import (build_graph_distributed,
+                                          map_graph_distributed)
+
+    card_workers(w)
+    monkeypatch.setenv("SHEEP_MESH_KERNEL", kernel)
+    tail, head = rmat_edges(14, 8 << 14, seed=5)
+    want_seq = degree_sequence(tail, head)
+    want = build_forest(tail, head, want_seq)
+    tm = {}
+    pj.launches = 0
+    seq, forest = build_graph_distributed(tail, head, num_workers=w,
+                                          timings=tm)
+    torch.cuda.synchronize()
+    assert pj.launches > 0
+    if kernel == "chunked":
+        assert len(tm["k1_by_worker"]) == w and min(tm["k1_by_worker"]) > 0
+    np.testing.assert_array_equal(seq, want_seq)
+    np.testing.assert_array_equal(forest.parent, want.parent)
+    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+    _, parts = map_graph_distributed(tail, head, num_workers=w)
+    merged = merge_forests_device(*parts)
+    np.testing.assert_array_equal(merged.parent, want.parent)
+    np.testing.assert_array_equal(merged.pst_weight, want.pst_weight)
+
+
+def test_cuda_resilient_mesh_rung(cuda, card_workers, tmp_path):
+    """The ladder starts at the mesh rung on a mesh of two workers on the
+    card: no degrade, K1 launched, the oracle's forest; a kill at its
+    second boundary resumes on the mesh rung to the same forest."""
+    from sheep_tpu_torch.runtime import (BuildKilled, FaultPlan,
+                                         RuntimeConfig, build_graph_resilient,
+                                         clear_plan, install_plan)
+
+    card_workers(2)
+    tail, head = rmat_edges(14, 8 << 14, seed=6)
+    want = build_forest(tail, head, degree_sequence(tail, head))
+    ladder = ("mesh", "single", "host")
+
+    def run(**kw):
+        cfg = RuntimeConfig(checkpoint_dir=str(tmp_path), ladder=ladder,
+                            backoff_base_s=0.0, **kw)
+        pj.launches = 0
+        _, forest = build_graph_resilient(tail, head, config=cfg)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(forest.parent, want.parent)
+        np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+        return cfg
+
+    cfg = run()
+    assert pj.launches > 0
+    assert ("checkpoint", "mesh", 0) in cfg.events
+    assert not any(e[0] == "degrade" for e in cfg.events)
+    install_plan(FaultPlan(site="boundary", at=1, kind="kill"))
+    try:
+        with pytest.raises(BuildKilled):
+            run()
+    finally:
+        clear_plan()
+    cfg = run(resume=True)
+    assert [e[1] for e in cfg.events if e[0] == "resume"] == ["mesh"]
+    assert not any(e[0] == "degrade" for e in cfg.events)

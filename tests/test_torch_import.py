@@ -33,7 +33,9 @@ NEW_MODULES = (
     "sheep_tpu_torch.cli.graph2tree", "sheep_tpu_torch.cli.make_graph",
     "sheep_tpu_torch.cli.merge_trees", "sheep_tpu_torch.cli.partition_tree",
     "sheep_tpu_torch.integrity.fsck", "sheep_tpu_torch.parallel",
-    "sheep_tpu_torch.parallel.build", "sheep_tpu_torch.supervisor",
+    "sheep_tpu_torch.parallel.build", "sheep_tpu_torch.parallel.mesh",
+    "sheep_tpu_torch.parallel.chunked", "sheep_tpu_torch.parallel.stream",
+    "sheep_tpu_torch.supervisor",
     "sheep_tpu_torch.supervisor.heartbeat", "sheep_tpu_torch.utils.knobs",
     # the external-memory build, the treewidth mode and the planner tool
     "sheep_tpu_torch.ops.extmem", "sheep_tpu_torch.core.jxn",

@@ -10,16 +10,18 @@ port's build runs on the CPU here (``device="cpu"``); its reduce loop
 dispatches no pipelined chunks under a runtime, and neither does the
 reference's, so boundaries and events line up one for one.
 
+The mesh rung runs on eight CPU workers (``parallel.mesh.mesh_devices``
+patched, the ``mesh8`` fixture), as the reference's runs on its
+8-device virtual CPU mesh: ``test_ladder_degrades_mesh_to_single``,
+``test_ladder_forced_mesh_to_host_matches`` and a kill at each of the
+mesh rung's boundaries, resumed, equal the reference's events and
+forest.  ``test_ladder_respects_device_count`` becomes the check that on
+one CPU device the default ladder leaves ``mesh`` and ``ext`` out.
+
 Not mirrored, and why:
-- the mesh cases (``test_resilient_build_matches_oracle[ladder1]``,
-  ``test_ladder_degrades_mesh_to_single``,
-  ``test_ladder_forced_mesh_to_host_matches``,
-  ``test_resume_equivalence_kill_at_every_boundary[ladder1]``): the port
-  has no ``mesh`` rung until ``parallel/`` is ported;
-  ``test_ladder_respects_device_count`` becomes the check that the
-  port's default ladder leaves ``mesh`` and ``ext`` out;
-- ``test_init_distributed_unreachable_coordinator_times_out``
-  (``parallel/``) and ``test_graph2tree_checkpoint_flags`` (the CLI);
+- ``test_init_distributed_unreachable_coordinator_times_out`` is in
+  tests/test_torch_distributed.py, ``test_graph2tree_checkpoint_flags``
+  (the CLI) in tests/test_torch_cli.py;
 - ``test_tree_and_sequence_writers_are_atomic``: the port has no .tre or
   .seq writer yet.  The atomic writer itself is held in
   tests/test_torch_host_layers.py.
@@ -505,6 +507,112 @@ def test_a_programming_error_propagates(small_graph, monkeypatch):
     with pytest.raises(ValueError, match="a bug"):
         rt.build_graph_resilient(tail, head, config=cfg, device="cpu")
     assert not any(e[0] in ("retry", "degrade") for e in cfg.events)
+
+
+@pytest.fixture
+def mesh8(monkeypatch):
+    """The port's mesh on eight CPU workers, as the reference's tests
+    force eight virtual devices."""
+    from sheep_tpu_torch.parallel import mesh as port_mesh
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(port_mesh, "mesh_devices", lambda device: [cpu] * 8)
+
+
+def test_ladder_runs_the_mesh_rung_first(small_graph, tmp_path, mesh8):
+    """Unfaulted on eight workers: the mesh rung builds the tree, with the
+    reference's checkpoints, and nothing degrades."""
+    from sheep_tpu_torch.runtime.driver import _ladder_rungs
+    tail, head, want_seq, want = small_graph
+    assert _ladder_rungs(RuntimeConfig(), None, torch.device("cpu"))[0] \
+        == "mesh"
+    got = _both(tmp_path, tail, head, "ck", ladder=("mesh", "single",
+                                                    "host"))
+    _assert_parity(got, want_seq, want)
+    events = got["port"][2].events
+    assert ("checkpoint", "mesh", 1) in events
+    assert not any(e[0] == "degrade" for e in events)
+
+
+def test_ladder_degrades_mesh_to_single(small_graph, tmp_path, mesh8):
+    tail, head, want_seq, want = small_graph
+    got = _both(tmp_path, tail, head, "ck", ("mesh_chunk", 0, "xla", -1),
+                max_retries=1, ladder=("mesh", "single", "host"))
+    _assert_parity(got, want_seq, want)
+    degrades = [(e[1], e[2]) for e in got["port"][2].events
+                if e[0] == "degrade"]
+    assert degrades == [("mesh", "single")]
+
+
+def test_ladder_forced_mesh_to_host_matches(small_graph, tmp_path, mesh8):
+    """A forced mesh -> single -> host degradation matches the
+    uninterrupted build (parent, pst and ECV(down)) and the reference."""
+    tail, head, want_seq, want = small_graph
+    got = _both(tmp_path, tail, head, "ck",
+                ("mesh_chunk,chunk", 0, "xla", -1), max_retries=1,
+                ladder=("mesh", "single", "host"))
+    _assert_parity(got, want_seq, want)
+    seq, forest, cfg = got["port"]
+    degrades = [(e[1], e[2]) for e in cfg.events if e[0] == "degrade"]
+    assert degrades == [("mesh", "single"), ("single", "host")]
+    assert _ecv_down(tail, head, seq, forest) == \
+        _ecv_down(tail, head, want_seq, want)
+
+
+def test_mesh_rung_kill_and_resume(small_graph, tmp_path, mesh8):
+    """Kill both builds at each boundary of the mesh rung in turn: each
+    resume restarts at the mesh rung from its checkpoint, with the
+    reference's events, and equals the oracle."""
+    tail, head, want_seq, want = small_graph
+    ladder = ("mesh", "single", "host")
+    base = _both(tmp_path, tail, head, "base", ladder=ladder)
+    _assert_parity(base, want_seq, want)
+    boundaries = [e for e in base["port"][2].events if e[0] == "checkpoint"]
+    assert len(boundaries) >= 2
+    for k in range(len(boundaries)):
+        got = {}
+        for side in ("ref", "port"):
+            d = str(tmp_path / f"kill{k}-{side}")
+            with pytest.raises((BuildKilled, ref_rt.BuildKilled)):
+                _build(side, tail, head, d, ("boundary", k, "kill"),
+                       ladder=ladder)
+            got[side] = _build(side, tail, head, d, resume=True,
+                               ladder=ladder)
+        _assert_parity(got, want_seq, want)
+        resumes = [e for e in got["port"][2].events if e[0] == "resume"]
+        assert resumes and resumes[0][1] == "mesh", k
+
+
+def test_hang_on_the_mesh_rung_skips_the_card_rungs(small_graph, tmp_path,
+                                                    mesh8, monkeypatch):
+    """A hang on the card gives the mesh rung up, and the ladder goes on
+    to the host rung: a rung that ran on the card would queue behind the
+    held kernel."""
+    from sheep_tpu_torch.parallel import chunked as port_chunked
+    tail, head, _, want = small_graph
+
+    def hung(*args, **kw):
+        raise DeviceHung("dispatch mesh_chunk held past the watchdog")
+
+    monkeypatch.setattr(port_chunked, "chunk_sharded", hung)
+    cfg = RuntimeConfig(checkpoint_dir=str(tmp_path), backoff_base_s=0.0,
+                        ladder=("mesh", "single", "host"))
+    _, forest = rt.build_graph_resilient(tail, head, config=cfg,
+                                         device="cpu")
+    _assert_matches(forest, want)
+    assert [(e[1], e[2]) for e in cfg.events if e[0] == "degrade"] == \
+        [("mesh", "host")]
+
+
+def test_chunk_runtime_device_none_needs_cuda():
+    """ChunkRuntime's device None means CUDA, as every entry point's."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    from sheep_tpu_torch.runtime.driver import ChunkRuntime
+    args = (RetryPolicy(), None, [], "single", 4,
+            np.arange(4, dtype=np.uint32), np.zeros(4, np.uint32), "sig")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ChunkRuntime(*args)
+    assert ChunkRuntime(*args, device="cpu").device == torch.device("cpu")
 
 
 def test_device_none_needs_cuda(small_graph):
