@@ -109,6 +109,25 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    blocks, the single rung's second dispatch failing for good (K1
    launched on single, a degrade single -> ext, ext-block events, equal
    to the oracle);
+9e. the tournament supervisor (``supervise`` line), host code that
+   loads no torch: ``python -m sheep_tpu_torch.cli.supervise G.dat -w 4
+   -d S -o T_sup.tre`` on 9c's real-size file, its process tree sampled
+   every 5 ms (``TreeSampler``: each leg's peak RSS, torch mapped into
+   none), the tree equal to 9c's T.tre and the oracle, each leg once;
+   then with ``SHEEP_FAULT_PLAN=kill@0:1,corrupt@1:0,stop@1:0`` (exit 1
+   after all three fired) and resumed in the same ``-d``: only the legs
+   the manifest had not finished re-dispatched, the same tree; then
+   ``supervise --status --json``;
+9f. the distributed out-of-core build (``distext`` line), host code: the
+   reference's DISTEXTBENCH shape (a file 4x the per-leg budget over 2
+   legs; at 192M a leg over EXTBENCH's 2^26 records, the card host's
+   interpreter leaving too little of 96M, PERF.md §4): ``graph2tree
+   --distext`` under the budget (each leg's sampled peak inside it, no
+   torch), the single-host ext build and the in-RAM build, the three
+   trees equal byte for byte; a map leg SIGKILLed once its first block
+   checkpoint lands, re-dispatched alone and resumed from the
+   checkpoint; the tight-budget auto-route (``graph2tree.main`` in this
+   process, no ``--distext``), each tree the same;
 10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
     single -> host -> stream -> spill, checkpoints in a temporary
     directory) on the real-size graph: equal to the oracle, no degrade,
@@ -119,8 +138,9 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
     memory;
 10b. the sharded mesh build (``mesh`` line): the port's mesh given W
     workers on the one card through the ``parallel.mesh.mesh_devices``
-    seam; on the real-size graph ``build_graph_distributed`` at W = 2, 4
-    and 8 (the chunked build, unified global rounds), the split form
+    seam; on the real-size graph ``build_graph_distributed`` at W = 2 and
+    4, and on rmat_edges(22, 2^25, seed=0) at W = 8 (the chunked build,
+    unified global rounds), the split form
     (``unified=False``) and the map-only partials merged on the card by
     ``merge_forests_device`` at W = 4, and the fault-tolerant build from
     its ``mesh`` rung at W = 4 with checkpoints (no degrade); on
@@ -1613,7 +1633,8 @@ def ext_phase(device: torch.device, real, gdir: str,
     (``ext`` line):
 
     1. the EXTBENCH graph (``write_extbench``, or ``extbench`` for a
-       smaller one) built by ``graph2tree E.dat -o E_ext.tre`` under
+       smaller one; written to ``gdir``, where the distext phase reads
+       it again) built by ``graph2tree E.dat -o E_ext.tre`` under
        SHEEP_MEM_BUDGET=192M with no ``--ext``: the budget must route it
        to ext, the process must peak under 192 MiB (PROC_WRAPPER's
        peak) and never load torch,
@@ -1643,11 +1664,11 @@ def ext_phase(device: torch.device, real, gdir: str,
         t = lambda name: os.path.join(tmp, name)
         g = lambda name: os.path.join(gdir, name)
         kw = extbench or {}
-        rec["extbench"]["write_s"] = write_extbench(t("E.dat"), **kw)
-        records = os.path.getsize(t("E.dat")) // 12
-        rec["extbench"]["file_bytes"] = os.path.getsize(t("E.dat"))
+        rec["extbench"]["write_s"] = write_extbench(g("E.dat"), **kw)
+        records = os.path.getsize(g("E.dat")) // 12
+        rec["extbench"]["file_bytes"] = os.path.getsize(g("E.dat"))
         out, wall, proc = run_wrapped(
-            "graph2tree", [t("E.dat"), "-o", t("E_ext.tre")],
+            "graph2tree", [g("E.dat"), "-o", t("E_ext.tre")],
             env={"SHEEP_MEM_BUDGET": EXT_BUDGET})
         rec["extbench"].update(
             budgeted_wall_s=wall, records=records,
@@ -1665,7 +1686,7 @@ def ext_phase(device: torch.device, real, gdir: str,
             proc["peak_rss_bytes"] < EXT_BUDGET_BYTES
         checks["extbench_no_torch"] = not proc["torch_loaded"]
         out, wall, proc = run_wrapped("graph2tree",
-                                      [t("E.dat"), "-o", t("E_ram.tre")])
+                                      [g("E.dat"), "-o", t("E_ram.tre")])
         rec["extbench"].update(ram_wall_s=wall,
                                ram_peak_rss_bytes=proc["peak_rss_bytes"])
         checks["extbench_ram_in_ram"] = proc["ext_calls"] == 0
@@ -1675,12 +1696,11 @@ def ext_phase(device: torch.device, real, gdir: str,
         # budgeted build's process started from pinned
         assume = 40 << 20
         out, wall, _ = run_tool("plan", ["--explain", "--assume-rss",
-                                         str(assume), t("E.dat")],
+                                         str(assume), g("E.dat")],
                                 env={"SHEEP_MEM_BUDGET": EXT_BUDGET})
         rec["plan"] = {"wall_s": wall, "assume_rss": assume,
                        "text": out.splitlines()}
         checks["plan_chooses_ext"] = "chosen rung: ext " in out
-        os.unlink(t("E.dat"))
 
         for name, argv, env in (
                 ("ext_default_block", ["--ext"], {}),
@@ -1733,6 +1753,554 @@ def ext_phase(device: torch.device, real, gdir: str,
     log("ext " + json.dumps(rec))
     if not all(checks.values()):
         raise AssertionError(f"ext: checks failed: {checks}")
+    return rec
+
+
+#: the port's tools a supervised job runs as legs, by module (and
+#: distext verb)
+LEG_KINDS = {"degree_sequence": "sort", "graph2tree": "map",
+             "merge_trees": "merge", "distext hist": "hist",
+             "distext map": "distmap"}
+
+
+def leg_kind(cmd: str) -> str | None:
+    """The LEG_KINDS kind of a ``python -m sheep_tpu_torch.cli.<tool>``
+    command line; None for any other process."""
+    words = cmd.split()
+    if "-m" not in words[:-1]:
+        return None
+    mod = words[words.index("-m") + 1]
+    if not mod.startswith("sheep_tpu_torch.cli."):
+        return None
+    tool = mod.rsplit(".", 1)[1]
+    if tool == "distext" and len(words) > words.index(mod) + 1:
+        tool += " " + words[words.index(mod) + 1]
+    return LEG_KINDS.get(tool)
+
+
+def _status(pid: int) -> dict:
+    """The Tgid and VmRSS (bytes) of ``/proc/<pid>/status``; a zombie
+    has no VmRSS left to count."""
+    out = {}
+    with open(f"/proc/{pid}/status") as f:
+        for ln in f:
+            if ln.startswith("Tgid:"):
+                out["tgid"] = int(ln.split()[1])
+            elif ln.startswith("VmRSS:"):
+                out["rss"] = int(ln.split()[1]) * 1024
+    return out
+
+
+class TreeSampler:
+    """VmRSS of a process and every descendant of it, sampled every 5 ms
+    from this process (the card host's ``/proc`` has no VmHWM, so a
+    leg's own report cannot give its peak).  Descendants are found
+    through ``/proc/<pid>/task/*/children``, which on the card host also
+    lists a process's own threads: an entry whose Tgid is not its pid is
+    a thread and is left out.  A record is kept per pid and command
+    line, so a forked child is counted apart before and after its exec;
+    each has its first and peak RSS, the times it was first and last
+    seen, and whether torch's libraries were ever mapped into it
+    (``/proc/<pid>/maps``, read at first sight and every 10th sample:
+    importing torch takes far longer than that).  ``watch`` is
+    called after every sample with the sampler."""
+
+    def __init__(self, root: int, period: float = 0.005, watch=None):
+        self.root = root
+        self.period = period
+        self.watch = watch
+        self.procs: dict = {}
+        self.t0 = time.perf_counter()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def _tree(self) -> list:
+        seen, todo = [], [self.root]
+        while todo:
+            pid = todo.pop()
+            if pid in seen:
+                continue
+            seen.append(pid)
+            try:
+                tids = os.listdir(f"/proc/{pid}/task")
+            except OSError:
+                continue
+            for tid in tids:
+                try:
+                    with open(f"/proc/{pid}/task/{tid}/children") as f:
+                        todo += [int(x) for x in f.read().split()]
+                except OSError:
+                    pass
+        return seen
+
+    @staticmethod
+    def _torch_mapped(pid: int) -> bool:
+        with open(f"/proc/{pid}/maps") as f:
+            return any("libtorch" in ln for ln in f)
+
+    def _sample(self, n: int) -> None:
+        now = time.perf_counter() - self.t0
+        for pid in self._tree():
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = " ".join(c.decode() for c in f.read().split(b"\0")
+                                   if c)
+                st = _status(pid)
+                if st.get("tgid") != pid or "rss" not in st:
+                    continue
+                rss = st["rss"]
+                r = self.procs.get((pid, cmd))
+                if r is None:
+                    r = self.procs[(pid, cmd)] = {
+                        "pid": pid, "cmd": cmd, "start_rss_bytes": rss,
+                        "peak_rss_bytes": rss, "first_s": now,
+                        "last_s": now, "samples": 0, "torch_mapped": False,
+                        "maps_at": -10}
+                r["peak_rss_bytes"] = max(r["peak_rss_bytes"], rss)
+                r["last_s"] = now
+                r["samples"] += 1
+                if n - r["maps_at"] >= 10:
+                    r["maps_at"] = n
+                    r["torch_mapped"] |= self._torch_mapped(pid)
+            except (OSError, ValueError):
+                continue  # it ended between the walk and the read
+        if self.watch is not None:
+            self.watch(self)
+
+    def _run(self) -> None:
+        n = 0
+        while not self._stop.is_set():
+            self._sample(n)
+            n += 1
+            self._stop.wait(self.period)
+
+    def root_record(self) -> dict | None:
+        """The root process's record (its command line as sampled
+        first)."""
+        mine = [r for r in self.procs.values() if r["pid"] == self.root]
+        return min(mine, key=lambda r: r["first_s"]) if mine else None
+
+    def legs(self) -> list:
+        """The records of the root's descendants that ran one of the
+        port's tools (a child between its fork and its exec still shows
+        the root's command line and is left out), each with its kind and
+        seconds seen alive, in order of start."""
+        root = self.root_record()
+        out = []
+        for r in self.procs.values():
+            kind = leg_kind(r["cmd"])
+            if r["pid"] == self.root or kind is None \
+                    or (root is not None and r["cmd"] == root["cmd"]):
+                continue
+            rec = {k: v for k, v in r.items() if k != "maps_at"}
+            rec["kind"] = kind
+            rec["alive_s"] = r["last_s"] - r["first_s"]
+            out.append(rec)
+        return sorted(out, key=lambda r: r["first_s"])
+
+    def torch_mapped(self) -> bool:
+        """Whether torch was mapped into any process of the tree."""
+        return any(r["torch_mapped"] for r in self.procs.values())
+
+
+def by_kind(legs: list) -> dict:
+    """Per leg kind: how many ran, the span from the first start to the
+    last end, each one's seconds alive and the largest peak RSS."""
+    out: dict = {}
+    for r in legs:
+        k = out.setdefault(r["kind"], {"count": 0, "first_s": r["first_s"],
+                                       "last_s": r["last_s"], "alive_s": [],
+                                       "peak_rss_bytes": 0})
+        k["count"] += 1
+        k["first_s"] = min(k["first_s"], r["first_s"])
+        k["last_s"] = max(k["last_s"], r["last_s"])
+        k["alive_s"].append(r["alive_s"])
+        k["peak_rss_bytes"] = max(k["peak_rss_bytes"], r["peak_rss_bytes"])
+    for k in out.values():
+        k["span_s"] = k.pop("last_s") - k.pop("first_s")
+    return out
+
+
+def run_sampled(argv: list, env: dict | None = None, watch=None,
+                timeout: int = 900):
+    """``python -m sheep_tpu_torch.cli.<argv[0]> argv[1:]`` as a process
+    of its own, its process tree sampled; returns (exit code, stdout,
+    stderr, wall s, the sampler)."""
+    full_env = dict(os.environ)
+    full_env.update(env or {})
+    t0 = time.perf_counter()
+    # a session of its own, so a timeout stops the legs with the parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"sheep_tpu_torch.cli.{argv[0]}"] + argv[1:],
+        cwd=ROOT, env=full_env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    with TreeSampler(proc.pid, watch=watch) as sampler:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            out, err = proc.communicate()
+    return proc.returncode, out, err, time.perf_counter() - t0, sampler
+
+
+def _manifest_dispatches(state_dir: str) -> dict:
+    with open(os.path.join(state_dir, "manifest.json")) as f:
+        return {leg["key"]: leg["dispatches"] for leg in json.load(f)["legs"]}
+
+
+def supervise_phase(real, gdir: str, workers: int = 4) -> dict:
+    """The tournament supervisor at real size (``supervise`` line), on
+    the cli phase's files in ``gdir`` (G.dat, R-MAT 2^23 x 8, and T.tre,
+    ``-i -r``'s tree, equal to the oracle):
+
+    1. ``supervise G.dat -w 4 -d S -o T_sup.tre`` as a process, its
+       process tree sampled: the tree equals T.tre byte for byte and the
+       oracle; each leg dispatched once; the wall, each leg kind's span
+       and each leg's seconds alive and peak RSS; torch mapped into no
+       process of the tree;
+    2. with ``SHEEP_FAULT_PLAN=kill@0:1,corrupt@1:0,stop@1:0`` (a map
+       leg killed at dispatch, a merge output corrupted after its write,
+       the supervisor dead once that merge's second attempt publishes): the
+       supervisor exits 1 after all three fired (its ``-v`` event echo),
+       then a plain rerun in the same ``-d`` re-dispatches exactly the
+       legs the manifest had not finished, and the tree is the same;
+    3. ``supervise --status --json -d S``: every leg done, the
+       manifest's dispatches."""
+    from sheep_tpu_torch.io import read_tree
+
+    rec: dict = {"workers": workers}
+    checks: dict = {}
+    g = lambda name: os.path.join(gdir, name)
+    rc, out, err, wall, sampler = run_sampled(
+        ["supervise", g("G.dat"), "-w", str(workers), "-d", g("S"), "-o",
+         g("T_sup.tre")])
+    if rc != 0:
+        raise AssertionError(f"supervise: exit {rc}\n{out}\n{err[-4000:]}")
+    legs = sampler.legs()
+    dispatches = _manifest_dispatches(g("S"))
+    rec["clean"] = {
+        "wall_s": wall, "dispatches": sum(dispatches.values()),
+        "legs": len(dispatches), "by_kind": by_kind(legs),
+        "per_leg": [{k: r[k] for k in ("kind", "pid", "alive_s",
+                                       "start_rss_bytes", "peak_rss_bytes")}
+                    for r in legs],
+        "phases": [ln for ln in out.splitlines() if " in " in ln],
+        "stdout_last": out.splitlines()[-1]}
+    checks["clean_tree_equals_ir"] = same_files(g("T_sup.tre"), g("T.tre"))
+    parent, pst = read_tree(g("T_sup.tre"))
+    want = real[3]
+    checks["clean_tree_equals_oracle"] = (
+        np.array_equal(parent, want.parent)
+        and np.array_equal(pst, want.pst_weight))
+    del parent, pst
+    checks["clean_each_leg_once"] = set(dispatches.values()) == {1}
+    checks["clean_no_torch"] = not sampler.torch_mapped()
+    # at 4 workers every leg is a process (no copy legs)
+    checks["clean_sampled_every_leg"] = len(legs) == len(dispatches)
+
+    plan = "kill@0:1,corrupt@1:0,stop@1:0"
+    rc, out, err, wall, sampler = run_sampled(
+        ["supervise", g("G.dat"), "-w", str(workers), "-d", g("C"), "-o",
+         g("T_chaos.tre"), "-v"], env={"SHEEP_FAULT_PLAN": plan})
+    pre = _manifest_dispatches(g("C"))
+    with open(g("C/manifest.json")) as f:
+        pre_done = {leg["key"] for leg in json.load(f)["legs"]
+                    if leg["state"] == "done"}
+    fired = {"kill": re.search(r"^supervise: leg-failed r0\.01 exit status "
+                               r"137$", out, re.M) is not None,
+             "corrupt": re.search(r"^supervise: leg-failed r1\.00 fsck: ",
+                                  out, re.M) is not None,
+             "stop": re.search(r"^supervise: supervisor-killed r1\.00$",
+                               out, re.M) is not None}
+    rec["chaos"] = {"plan": plan, "killed_rc": rc, "killed_wall_s": wall,
+                    "fired": fired, "done_before_resume": sorted(pre_done),
+                    "dispatches_before_resume": pre,
+                    "no_torch": not sampler.torch_mapped()}
+    checks["chaos_supervisor_died"] = rc == 1
+    checks["chaos_all_fired"] = all(fired.values())
+    rc, out, err, wall, sampler = run_sampled(
+        ["supervise", g("G.dat"), "-w", str(workers), "-d", g("C"), "-o",
+         g("T_chaos.tre")])
+    if rc != 0:
+        raise AssertionError(f"supervise resume: exit {rc}\n{out}\n"
+                             f"{err[-4000:]}")
+    post = _manifest_dispatches(g("C"))
+    redone = {k for k, n in post.items() if n > pre[k]}
+    rec["chaos"].update(resume_wall_s=wall, dispatches_after_resume=post,
+                        redispatched=sorted(redone),
+                        by_kind=by_kind(sampler.legs()))
+    checks["chaos_redispatched_only_unfinished"] = \
+        redone == set(post) - pre_done
+    checks["chaos_tree_identical"] = same_files(g("T_chaos.tre"),
+                                                g("T_sup.tre"))
+    checks["chaos_no_torch"] = (rec["chaos"]["no_torch"]
+                                and not sampler.torch_mapped())
+
+    out, wall, _ = run_tool("supervise", ["--status", "--json", "-d",
+                                          g("S")])
+    status = json.loads(out)
+    rec["status"] = {"wall_s": wall, "done": status["done"],
+                     "legs_done": status["legs_done"],
+                     "legs_total": status["legs_total"],
+                     "dispatches": status["dispatches"],
+                     "state_dir_bytes": status["disk"]["state_dir_bytes"]}
+    checks["status_json"] = (status["done"]
+                             and status["legs_done"] == status["legs_total"]
+                             == len(dispatches)
+                             and status["dispatches"] == len(dispatches))
+    for d in ("S", "C"):
+        shutil.rmtree(g(d), ignore_errors=True)
+    rec["checks"] = checks
+    log("supervise " + json.dumps(rec))
+    if not all(checks.values()):
+        raise AssertionError(f"supervise: checks failed: {checks}")
+    return rec
+
+
+#: the reference's published distext deployment is DISTEXTBENCH r01
+#: (DISTEXTBENCH_r01.json, scripts/distextbench.py): 2^25 R-MAT records
+#: over 2^18 vertices, 4x a 96M per-leg budget, over 2 legs.  On the
+#: card host a leg's interpreter, numpy and imports alone hold 88.6 MB of
+#: RSS, leaving 12 MB of the 96 MiB where the reference's leg used about
+#: 60 MB over its imports (PERF.md §4), so the phase keeps the factor of
+#: 4 and the 2 legs at 192M a leg over 2^26 records: byte for byte the
+#: ext phase's EXTBENCH file (log_n 20).  ``distext_phase(device,
+#: log_n=18, records=1 << 25, budget="96M")`` runs the deployment as
+#: published.
+DISTEXT_BUDGET = "192M"
+DISTEXT_LEGS = 2
+#: the legs that fit their work to SHEEP_MEM_BUDGET (``cli/distext``'s
+#: verbs), whose sampled peaks the bench's acceptance gates; the merge
+#: legs are ``merge_trees``, which no budget prices in either package,
+#: and their peaks are recorded beside
+BUDGETED = ("hist", "distmap")
+
+
+def distext_phase(device: torch.device, log_n: int = 20,
+                  records: int = 1 << 26, budget: str = DISTEXT_BUDGET,
+                  legs: int = DISTEXT_LEGS, dat: str | None = None) -> dict:
+    """The distributed out-of-core build (``distext`` line), host code
+    that loads no torch, at the reference's published deployment shape
+    (a file 4x the per-leg budget over ``legs`` legs; DISTEXT_BUDGET):
+    the bench's three arms and its acceptance, then a leg killed
+    mid-range and the tight-budget auto-route.
+
+    1. distext: ``graph2tree D.dat --distext -o D.tre`` as a process with
+       SHEEP_DISTEXT_LEGS and SHEEP_MEM_BUDGET in its (and so every
+       leg's) environment, its process tree sampled every 5 ms;
+    2. ext: ``graph2tree D.dat --ext -o D_ext.tre`` under the same
+       budget (PROC_WRAPPER's peak);
+    3. oracle: ``graph2tree D.dat -o D_ram.tre``, in RAM, unbudgeted;
+    the gates are the bench's: the file is 4x the per-leg budget, there
+    are ``legs`` legs, every budgeted leg's sampled peak RSS (the hist and
+    map legs; the bench gates its map legs) is inside the budget, and the
+    distext tree equals the oracle's and the ext build's byte for byte;
+    and torch is mapped into no process;
+    4. the job again with map leg r0.00 killed (SIGKILL, from the
+       sampler) once its first block checkpoint has landed: only that
+       leg is re-dispatched, its second attempt resumes from the
+       checkpoint (it folds fewer blocks than the range holds) and the
+       tree is the same (SHEEP_FAULT_PLAN's ``kill`` fires at dispatch,
+       before any block, so it cannot kill a leg mid-range);
+    5. the tight-budget auto-route: ``graph2tree.main`` in this process,
+       whose RSS is far past the budget, with no ``--distext`` and no
+       leg count (SHEEP_LEG_CORES=4): the floor block cannot fit, the
+       job goes to legs of their own, and the tree is the same.
+
+    ``dat``: that file already written (the ext phase's EXTBENCH file,
+    the same bytes ``write_extbench(log_n, records)`` writes)."""
+    import signal
+
+    from sheep_tpu_torch.cli import graph2tree
+    from sheep_tpu_torch.resources.governor import parse_size
+
+    budget_bytes = parse_size(budget)
+    rec: dict = {"budget": budget, "budget_bytes": budget_bytes,
+                 "legs": legs, "log_n": log_n}
+    checks: dict = {}
+    tmp = tempfile.mkdtemp(prefix="sheep-distext.")
+    try:
+        t = lambda name: os.path.join(tmp, name)
+        if dat is None:
+            rec["write_s"] = write_extbench(t("D.dat"), log_n=log_n,
+                                            records=records)
+        else:
+            os.symlink(dat, t("D.dat"))
+        rec["file_bytes"] = os.path.getsize(t("D.dat"))
+        if rec["file_bytes"] != 12 * records:
+            raise AssertionError(f"distext: {t('D.dat')} holds "
+                                 f"{rec['file_bytes']} bytes, not "
+                                 f"{records} records")
+        rec["records"] = records
+        # a leg's RSS before any work: the interpreter and numpy alone,
+        # then with the leg tool's imports
+        for key, mods in (("python_numpy_rss_bytes", "numpy"),
+                          ("leg_import_rss_bytes",
+                           "numpy, sheep_tpu_torch.cli.distext, "
+                           "sheep_tpu_torch.cli.graph2tree, "
+                           "sheep_tpu_torch.ops.extmem")):
+            out = subprocess.run(
+                [sys.executable, "-c", f"import {mods}\n"
+                 "print(open('/proc/self/status').read())"],
+                capture_output=True, text=True, cwd=ROOT, check=True).stdout
+            rec[key] = int(re.search(r"^VmRSS:\s+(\d+) kB", out,
+                                     re.M).group(1)) * 1024
+        env = {"SHEEP_MEM_BUDGET": budget, "SHEEP_DISTEXT_LEGS": str(legs)}
+
+        def distext_arm(name: str, watch=None) -> dict:
+            rc, out, err, wall, sampler = run_sampled(
+                ["graph2tree", t("D.dat"), "--distext", "-o",
+                 t(f"{name}.tre")], env=env, watch=watch)
+            state = t(f"{name}.tre.distext")
+            if rc != 0:
+                logs = os.path.join(state, "logs")
+                tails = {n: open(os.path.join(logs, n)).read()[-800:]
+                         for n in sorted(os.listdir(logs))}
+                raise AssertionError(f"distext {name}: exit {rc}\n{out}\n"
+                                     f"{err[-4000:]}\nlegs: {tails}")
+            per_leg = {}
+            for key in sorted(os.listdir(state)):
+                if key.endswith(".perf.json"):
+                    with open(os.path.join(state, key)) as f:
+                        rep = json.load(f)
+                    per_leg[key[:-len(".perf.json")]] = {
+                        "range": rep["range"],
+                        **{k: rep["perf"].get(k) for k in (
+                            "read_s", "fold_s", "ext_blocks", "block_edges",
+                            "strategies", "threads", "overlap_frac")},
+                        "vmhwm": rep["proc_status"].get("vmhwm"),
+                        "vmrss_at_exit": rep["proc_status"].get("vmrss")}
+            legs_seen = sampler.legs()
+            root = sampler.root_record()
+            return {"wall_s": wall, "records_per_s": records / wall,
+                    "dispatches": _manifest_dispatches(state),
+                    "by_kind": by_kind(legs_seen), "per_leg": per_leg,
+                    "legs_sampled": [{k: r[k] for k in (
+                        "kind", "pid", "alive_s", "start_rss_bytes",
+                        "peak_rss_bytes")} for r in legs_seen],
+                    "parent_peak_rss_bytes": root["peak_rss_bytes"],
+                    "leg_peaks_bytes": [r["peak_rss_bytes"]
+                                        for r in legs_seen
+                                        if r["kind"] in BUDGETED],
+                    "merge_peaks_bytes": [r["peak_rss_bytes"]
+                                          for r in legs_seen
+                                          if r["kind"] == "merge"],
+                    "no_torch": not sampler.torch_mapped()}
+
+        arm = rec["distext"] = distext_arm("D")
+        leg_peaks = arm["leg_peaks_bytes"]
+        _, wall, proc = run_wrapped(
+            "graph2tree", [t("D.dat"), "--ext", "-o", t("D_ext.tre")],
+            env={"SHEEP_MEM_BUDGET": budget})
+        rec["ext"] = {"wall_s": wall, "records_per_s": records / wall,
+                      "peak_rss_bytes": proc["peak_rss_bytes"],
+                      "start_rss_bytes": proc["start_rss_bytes"],
+                      "torch_loaded": proc["torch_loaded"],
+                      "ext_blocks": proc["ext_blocks"],
+                      "strategies": proc["strategies"],
+                      "perf": proc["perf"]}
+        _, wall, proc = run_wrapped("graph2tree",
+                                    [t("D.dat"), "-o", t("D_ram.tre")])
+        rec["oracle"] = {"wall_s": wall, "records_per_s": records / wall,
+                         "peak_rss_bytes": proc["peak_rss_bytes"],
+                         "torch_loaded": proc["torch_loaded"]}
+        rec["acceptance"] = {
+            "file_ge_factor_x_leg_budget":
+                rec["file_bytes"] >= 4 * budget_bytes,
+            "n_legs_ge_2": len(arm["per_leg"]) == legs >= 2,
+            "every_leg_rss_inside_budget":
+                bool(leg_peaks) and max(leg_peaks) < budget_bytes,
+            "distext_oracle_exact": same_files(t("D.tre"), t("D_ram.tre")),
+            "distext_matches_single_host_ext": same_files(t("D.tre"),
+                                                          t("D_ext.tre")),
+        }
+        checks.update(rec["acceptance"])
+        checks["no_torch"] = (arm["no_torch"] and not rec["ext"]
+                              ["torch_loaded"] and not rec["oracle"]
+                              ["torch_loaded"])
+        checks["each_leg_once"] = set(arm["dispatches"].values()) == {1}
+
+        killed: dict = {}
+
+        def kill_mid_range(sampler):
+            # once the leg's first snapshot is published, and never while
+            # it writes the next one: a kill between the sidecar's rename
+            # and the snapshot's leaves a pair no resume accepts (both
+            # packages; PERF.md §7)
+            if killed:
+                return
+            ck = t("K.tre.distext/ck-r0.00")
+            try:
+                names = os.listdir(ck)
+            except OSError:
+                return
+            if "sheep-ckpt.npz" not in names or any(
+                    n.startswith(".sheep-ckpt.npz") for n in names):
+                return
+            for r in sampler.procs.values():
+                if (f"-r 0:{records // legs} " in r["cmd"]
+                        and "cli.distext map" in r["cmd"]):
+                    try:
+                        os.kill(r["pid"], signal.SIGKILL)
+                    except ProcessLookupError:
+                        continue  # an attempt that already ended
+                    killed["pid"] = r["pid"]
+                    killed["at_s"] = time.perf_counter() - sampler.t0
+                    return
+
+        arm = distext_arm("K", watch=kill_mid_range)
+        leg0 = arm["per_leg"]["r0.00"]
+        folded = sum((leg0["strategies"] or {}).values())
+        rec["leg_kill"] = {"killed": killed, "wall_s": arm["wall_s"],
+                           "dispatches": arm["dispatches"],
+                           "resumed_leg": leg0,
+                           "blocks_folded_after_resume": folded}
+        checks["leg_kill_fired"] = bool(killed)
+        checks["leg_kill_redispatched_only_it"] = arm["dispatches"] == {
+            k: (2 if k == "r0.00" else 1) for k in arm["dispatches"]}
+        checks["leg_kill_resumed_from_checkpoint"] = \
+            0 < folded < leg0["ext_blocks"]
+        checks["leg_kill_tree_identical"] = same_files(t("K.tre"),
+                                                       t("D.tre"))
+
+        auto_env = {"SHEEP_MEM_BUDGET": budget, "SHEEP_LEG_CORES": "4",
+                    "SHEEP_DISTEXT_LEGS": None}
+        with env_set(auto_env), TreeSampler(os.getpid()) as sampler:
+            out, wall, _ = run_main(graph2tree, [t("D.dat"), "-o",
+                                                 t("A.tre")], device=device)
+        auto_legs = [r for r in sampler.legs() if r["kind"] in BUDGETED]
+        merges = [r for r in sampler.legs() if r["kind"] == "merge"]
+        rec["auto_route"] = {
+            "wall_s": wall,
+            "parent_rss_bytes": _status(os.getpid())["rss"],
+            "dispatches": _manifest_dispatches(t("A.tre.distext")),
+            "by_kind": by_kind(auto_legs + merges),
+            "leg_peaks_bytes": [r["peak_rss_bytes"] for r in auto_legs],
+            "merge_peaks_bytes": [r["peak_rss_bytes"] for r in merges]}
+        checks["auto_route_took_distext"] = os.path.exists(
+            t("A.tre.distext/manifest.json"))
+        checks["auto_route_legs_inside_budget"] = bool(auto_legs) and max(
+            r["peak_rss_bytes"] for r in auto_legs) < budget_bytes
+        checks["auto_route_legs_no_torch"] = not any(
+            r["torch_mapped"] for r in auto_legs + merges)
+        checks["auto_route_sampled_legs"] = (
+            {r["kind"] for r in auto_legs} == set(BUDGETED) and bool(merges))
+        checks["auto_route_tree_identical"] = same_files(t("A.tre"),
+                                                         t("D.tre"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["checks"] = checks
+    log("distext " + json.dumps(rec))
+    if not all(checks.values()):
+        raise AssertionError(f"distext: checks failed: {checks}")
     return rec
 
 
@@ -2310,7 +2878,7 @@ def mesh_nccl_cli(device: torch.device, workers: int = 2) -> dict:
 
 
 def mesh_phase(device: torch.device, real, small, widths=(2, 4, 8),
-               blocks: int = 4) -> dict:
+               blocks: int = 4, cut: dict | None = None) -> dict:
     """The sharded mesh build (``parallel/``) on one card, its workers on
     the card through the ``mesh_devices`` seam, every run equal to the
     oracle bit for bit: on ``real`` ``build_graph_distributed`` at each
@@ -2319,7 +2887,8 @@ def mesh_phase(device: torch.device, real, small, widths=(2, 4, 8),
     resilient build from its mesh rung at W = 4 (checkpoints on, no
     fault); on ``small`` the single-dispatch twin (SHEEP_MESH_KERNEL=loop)
     and both mesh streaming builds in ``blocks`` blocks at W = 4; then
-    ``graph2tree -i -r`` joined at world size 1 over NCCL.  Prints one
+    ``graph2tree -i -r`` joined at world size 1 over NCCL.  ``cut``: a
+    smaller input (and its oracle) for some widths, by width.  Prints one
     ``mesh`` line."""
     from sheep_tpu_torch.core.sequence import sequence_positions
     from sheep_tpu_torch.ops.forest import merge_forests_device
@@ -2333,11 +2902,14 @@ def mesh_phase(device: torch.device, real, small, widths=(2, 4, 8),
     tail, head, want_seq, want = real
     runs = []
     for w in widths:
+        t, h, ws, wf = (cut or {}).get(w, real)
         runs.append(mesh_run(
             "build_graph_distributed", w,
-            lambda tm, comm, w=w: build_graph_distributed(
-                tail, head, num_workers=w, device=device, timings=tm,
-                comm=comm), want_seq, want, device))
+            lambda tm, comm, w=w, t=t, h=h: build_graph_distributed(
+                t, h, num_workers=w, device=device, timings=tm,
+                comm=comm), ws, wf, device))
+        runs[-1]["records"] = len(t)
+        del t, h, ws, wf
     runs.append(mesh_run(
         "build_graph_chunked_distributed(unified=False)", 4,
         lambda tm, comm: build_graph_chunked_distributed(
@@ -2445,12 +3017,17 @@ def main() -> int:
     try:
         cli_phase(device, real_data, part_rec, keep=gdir)
         ext_phase(device, real_data, gdir)
+        supervise_phase(real_data, gdir)
+        distext_phase(device, dat=os.path.join(gdir, "E.dat"))
     finally:
         shutil.rmtree(gdir, ignore_errors=True)
     # the default tail's last run (the runs in between are other arms)
     main_run = next(r for r in reversed(real) if r["arm"] == "stream")
     resilient_real(device, real_data, main_run["wall_s"])
-    mesh = mesh_phase(device, real_data, small_data)
+    # the unified W = 8 run at 2^22 x 8 keeps the script within about 15
+    # minutes on the slowest card host seen (PERF.md §4)
+    mesh = mesh_phase(device, real_data, small_data,
+                      cut={8: real_inputs(22, 25, 0)})
     del real_data
     device_phase(device, small_data)
     resilient_faults(device, small_data)

@@ -26,20 +26,24 @@ Layout:
               wrapper (ops/fused_jump.py, csrc/fused_jump.cu) and the
               backend probe's kernels P1 and P2 (ops/probe.py,
               csrc/probe_kernels.cu); and the external-memory build
-              (ops/extmem.py), which is host code and loads no torch
+              (ops/extmem.py) and its supervised distributed form
+              (ops/distext.py), which are host code and load no torch
   runtime/    the fault-tolerant build: retry, watchdog, checkpoint and
               resume, the degradation ladder (build_graph_resilient,
               mesh -> single -> host -> stream -> ext -> spill)
   integrity/, resources/, plan/, obs/
               the host layers the runtime stands on: sidecar checksums,
-              budgets and retention, the rung planner, the trace
+              budgets and retention, the rung and distext planner, the
+              trace and the metrics registry
   cli/        the command-line tools (python -m sheep_tpu_torch.cli.<tool>:
               graph2tree, degree_sequence, make_graph, partition_tree,
-              merge_trees, fsck, plan)
+              merge_trees, fsck, plan, supervise, distext)
   parallel/   the -i/-r build over a mesh of workers: the Mesh with its
               collectives over torch.distributed (NCCL on CUDA, gloo on
               the CPU), the sharded, chunked and streaming mesh builds
-  supervisor/ the worker heartbeat
+  supervisor/ the chaos-hardened tournament supervisor: heartbeat,
+              durable manifest, SHEEP_FAULT_PLAN chaos, the orchestrator
+              whose runners start the port's own tools, --status
   scripts/    tools: the backend probe (python -m
               sheep_tpu_torch.scripts.kernel_probe)
   utils/      synthetic R-MAT graphs, the environment capture, the
@@ -47,9 +51,9 @@ Layout:
   convert     numpy state <-> tensors on a device
 
 The host layers are copies of the reference's modules; their notes still
-name reference modules the port has not ported yet (serve/, most of
-supervisor/, ops/distext.py), whose queue
-is in ROADMAP.md §1 (``QUEUE`` below names each item).
+name reference modules the port has not ported yet (serve/,
+supervisor/remote.py), whose queue is in ROADMAP.md §1 (``QUEUE`` below
+names each item).
 
 Only the routes that reach the card load torch: the package, ``ops``
 and ``runtime`` resolve their device modules lazily, so the serial,
@@ -71,9 +75,8 @@ INVALID_PART = -1
 #: reference modules not ported yet, by their ROADMAP.md §1 queue item;
 #: a route that needs one fails with a message naming its item
 QUEUE = {
-    "distext": "item 1 (ops/distext.py)",
-    "serve": "item 3 (serve/)",
-    "supervisor": "item 4 (supervisor/)",
+    "serve": "item 2 (serve/ with supervisor/remote.py)",
+    "remote": "item 2 (serve/ with supervisor/remote.py)",
 }
 
 

@@ -9,10 +9,12 @@ nonzero on ANY corruption (port of sheep_tpu/cli/fsck.py).
 ``-R`` / ``--repair-sidecar`` reseals the ``.sum`` sidecar of every
 artifact that structurally verifies but whose sidecar is lost or wrong
 (integrity.fsck.repair_sidecar).  Artifacts that fail their structural
-checks are still reported FAIL, never resealed.  Artifacts of modules
-the port has not ported yet (the serve daemon's ``.wal``/``.snap``, the
-distext ``.hist`` and manifest, the scrub, reseq and quarantine chains)
-are reported FAIL with the queue item they wait for.
+checks are still reported FAIL, never resealed.  A distext state dir's
+``.hist`` histograms and its manifest's shard-map chain are checked as
+the reference checks them.  Artifacts of the serving tier, which the
+port has not ported yet (the serve daemon's ``.wal``/``.snap``, the
+scrub, reseq and quarantine chains), are reported FAIL with the queue
+item they wait for.
 
 Exit codes: 0 all clean (or resealed), 1 corruption found, 2 usage error.
 """

@@ -32,18 +32,24 @@ Routes:
                 build
   -p            partition: print it, or with ``-o`` write the
                 partitioned graph
+  --distext     the distributed out-of-core build (``ops.distext``):
+                the tournament supervisor's hist -> Allreduce -> map ->
+                merge job over record slices of the ``.dat``, each leg a
+                process of its own (``cli.distext``); also taken under
+                ``SHEEP_DISTEXT_LEGS`` >= 2 or a ``SHEEP_MEM_BUDGET``
+                below the ext rung's floor block.  Its state dir is
+                ``--checkpoint-dir`` or ``<out>.distext``; a rerun
+                resumes off the fsck'd survivors.  Legs priced (or
+                pinned) to ship to remote workers wait for the serving
+                tier and fail naming its ROADMAP.md queue item
 
 Only the routes that reach the card load torch: ``-i``/``-r`` and the
 serial ``--checkpoint-dir`` build.  Every other route (serial, ``-l``,
-``-p``, ``-s``, ``--ext``, the treewidth mode without ``-i``/``-r``)
-runs in a process that never imports it, as the reference's never
-imports jax: ``SHEEP_MEM_BUDGET`` routes by the headroom left over the
-process's RSS, so the two packages must price the same process.
-
-Routes that need a module the port has not ported yet raise SystemExit
-naming its ROADMAP.md queue item and never fall back to another route:
-the distributed out-of-core build (``--distext``, ``SHEEP_DISTEXT_LEGS``
->= 2, or a budget below the ext rung's floor block).
+``-p``, ``-s``, ``--ext``, ``--distext`` and its legs, the treewidth
+mode without ``-i``/``-r``) runs in a process that never imports it,
+as the reference's never imports jax: ``SHEEP_MEM_BUDGET`` routes by the
+headroom left over the process's RSS, so the two packages must price the
+same process.
 
 ``main(argv, device=None)``: ``device`` is where the card routes run;
 None means CUDA and raises without it.
@@ -58,7 +64,7 @@ import sys
 
 import numpy as np
 
-from .. import resolve_device, unported
+from .. import resolve_device
 from ..core.facts import compute_facts
 from ..core.forest import build_forest
 from ..core.sequence import degree_sequence
@@ -67,29 +73,12 @@ from ..io.edges import EdgeList, load_edges, partial_range
 from ..io.seqfile import read_sequence, write_sequence
 from ..io.trefile import write_tree
 from ..partition.partition import Partition
-from ..resources.governor import (EXT_BLOCK_FLOOR, EXT_RECORD_BYTES,
-                                  ResourceGovernor, distext_forced_legs)
 from ..runtime.snapshot import input_signature
 from .common import (PhaseClock, graph_stats, maybe_init_distributed,
                      maybe_start_heartbeat, print_phase, print_tree,
                      runtime_config_from_opts)
 
 USAGE = "USAGE: graph2tree input_graph [options ...]"
-
-
-def distext_wanted(path: str) -> bool:
-    """Where the reference routes a build through its distributed
-    out-of-core job (its ``ops.distext.should_use_distext``): a ``.dat``
-    file when SHEEP_DISTEXT_LEGS >= 2, or when even the ext rung's
-    floor-sized block stream prices over the memory budget."""
-    if not path.endswith(".dat"):
-        return False
-    if distext_forced_legs() >= 2:
-        return True
-    head = ResourceGovernor.from_env().mem_headroom()
-    if head is None:
-        return False
-    return EXT_RECORD_BYTES * EXT_BLOCK_FLOOR > head
 
 
 def _tree_sig(seq) -> str:
@@ -228,7 +217,8 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if not use_mesh and not jxn_mode and not num_parts \
             and graph_filename.endswith(".dat"):
         if not use_distext:
-            use_distext = distext_wanted(graph_filename)
+            from ..ops.distext import should_use_distext
+            use_distext = should_use_distext(graph_filename)
         if use_distext and (partitions or not output_filename):
             print("warning: the distributed out-of-core build needs -o "
                   "and cannot partition (the edge records never load in "
@@ -246,9 +236,27 @@ def main(argv: list[str] | None = None, device=None) -> int:
     else:
         use_ext = use_distext = False
     if use_distext:
-        raise SystemExit(f"graph2tree: the distributed out-of-core build "
-                         f"(--distext, SHEEP_DISTEXT_LEGS or the memory "
-                         f"budget) {unported('distext')}")
+        # the supervised distributed job: the supervisor owns the whole
+        # hist -> Allreduce -> map -> merge lifecycle and prints the
+        # reference phase grammar itself; the state dir doubles as the
+        # checkpoint surface, so a rerun resumes off the fsck'd survivors
+        from ..integrity.errors import IntegrityError
+        from ..ops.distext import run_distext
+        from ..supervisor import (SupervisionFailed, SupervisorConfig,
+                                  SupervisorKilled)
+        state_dir = (rt_cfg.checkpoint_dir if rt_cfg is not None else
+                     None) or output_filename + ".distext"
+        try:
+            run_distext(graph_filename, state_dir,
+                        SupervisorConfig.from_env(),
+                        out_file=output_filename)
+        except (SupervisionFailed, SupervisorKilled, IntegrityError,
+                OSError) as exc:
+            print(f"graph2tree: distext: {exc}", file=sys.stderr)
+            return 1
+        if verbose:
+            print_phase("Finished", clock.total_seconds())
+        return 0
 
     # the card routes: -i/-r, and the serial build under --checkpoint-dir
     # (its single rung); everything else stays on the host without torch

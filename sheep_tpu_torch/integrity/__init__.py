@@ -5,8 +5,9 @@
   sidecar.py   ``.sum`` sidecar checksums sealed beside every artifact and
                verified on read under a strict/repair/trust policy (env
                ``SHEEP_INTEGRITY``)
-  fsck.py      verify any artifact or trial directory (``cli/fsck.py``);
-               artifacts of unported modules are reported as failures
+  fsck.py      verify any artifact or trial directory (``cli/fsck.py``),
+               a distext state dir's shard-map chain included; artifacts
+               of the unported serving tier are reported as failures
 
 The fast forest oracle is ``core.validate.check_forest_fast``.
 """

@@ -6,12 +6,14 @@ success and raises IntegrityError (or OSError) on any corruption.  The
 checks are layered: the sidecar checksum first (when one exists), then
 the format's structural invariants, then cheap semantic invariants.
 
+A state dir's distext ``manifest.json`` is checked as a chain: the
+manifest verifies, its shard map covers the graph's records, and every
+published ``.hist`` covers its leg's shard.
+
 Artifacts of modules the port has not ported yet are found and reported
 as failures naming the ROADMAP.md queue item they wait for, never passed
 and never skipped: the serve daemon's ``.wal`` logs and ``.snap``
-snapshots and its reseq, scrub and quarantine chains (``serve/``), and
-the distext ``.hist`` histograms and the supervisor's ``manifest.json``
-(``ops/distext.py``, ``supervisor/``).
+snapshots and its reseq, scrub and quarantine chains (``serve/``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from .errors import IntegrityError, MalformedArtifact
 from .sidecar import read_sidecar, resolve_policy, verify_file, write_sidecar
 
 #: suffixes fsck finds (``.npz`` = runtime snapshots, ``.trace`` = span
-#: logs; ``.wal``/``.snap``/``.hist`` belong to unported modules)
+#: logs, ``.hist`` = the distext legs' per-range degree histograms;
+#: ``.wal``/``.snap`` belong to the unported serving tier)
 ARTIFACT_SUFFIXES = (".tre", ".seq", ".dat", ".net", ".npz",
                      ".wal", ".snap", ".trace", ".hist")
 
@@ -98,6 +101,70 @@ def _fsck_trace(path: str, mode: str) -> str:
     return detail
 
 
+def _fsck_hist(path: str, mode: str) -> str:
+    """Verify a distext per-range histogram: sidecar
+    checksum, magic/length/int64 dtype, nonnegativity, and the range
+    invariants (records == slice length, degree total == 2 x records,
+    the max vid really appears).  The cross-artifact half — a histogram
+    whose range disagrees with the distext manifest's shard map — is
+    checked by :func:`fsck_distext_manifest` when fsck walks a state
+    dir."""
+    from ..ops.distext import read_histogram
+
+    h = read_histogram(path, integrity=mode)
+    return (f"n={len(h['deg'])} records={h['records']} "
+            f"range=[{h['start']}:{h['end']}) max_vid={h['max_vid']}")
+
+
+def fsck_distext_manifest(state_dir: str,
+                          mode: str | None = None) -> str | None:
+    """Verify a distext state dir's shard-map chain: the
+    manifest loads + verifies, its shards are a contiguous edge-disjoint
+    cover of the graph's record count, and every published ``.hist``
+    artifact's recorded range matches its leg's shard — a histogram
+    whose coverage disagrees with the manifest is REFUSED here, because
+    summing it would produce a plausible-looking but wrong sequence.
+
+    Returns the summary line, or None when the directory's manifest is
+    a plain (non-distext) tournament; raises on any corruption."""
+    from ..ops.distext import read_histogram
+    from ..supervisor.manifest import load_manifest
+
+    mode = resolve_policy(mode)
+    manifest = load_manifest(state_dir, mode)
+    if manifest.shards is None:
+        return None
+    shards = [(int(a), int(b)) for a, b in manifest.shards]
+    at = 0
+    for i, (a, b) in enumerate(shards):
+        if a != at or b < a:
+            raise MalformedArtifact(
+                f"{state_dir}: shard map is not a contiguous cover — "
+                f"shard {i} is [{a}:{b}) but the previous one ends at "
+                f"{at}")
+        at = b
+    if manifest.graph.endswith(".dat") and manifest.graph_bytes >= 0 \
+            and at != manifest.graph_bytes // 12:
+        raise MalformedArtifact(
+            f"{state_dir}: shard map covers {at} records but the "
+            f"manifest's graph has {manifest.graph_bytes // 12}")
+    checked = 0
+    for leg in manifest.legs:
+        if leg.kind != "hist" or not os.path.exists(leg.output):
+            continue
+        h = read_histogram(leg.output, integrity=mode)
+        a, b = shards[leg.index]
+        if (h["start"], h["end"]) != (a, b):
+            raise MalformedArtifact(
+                f"{leg.output}: histogram covers "
+                f"[{h['start']}:{h['end']}) but the manifest's shard "
+                f"map assigns leg {leg.index} [{a}:{b}) — refusing a "
+                f"histogram that disagrees with the manifest")
+        checked += 1
+    return (f"distext legs={len(shards)} records={at} "
+            f"hists={checked}/{len(shards)} shard-map-ok")
+
+
 def _unported_checker(what: str, *keys: str):
     def check(path: str, mode: str) -> str:
         raise UnportedArtifact(f"{path}: checking {what} "
@@ -114,8 +181,7 @@ _CHECKERS = {
     ".wal": _unported_checker("a serve write-ahead log", "serve"),
     ".snap": _unported_checker("a serve snapshot", "serve"),
     ".trace": _fsck_trace,
-    ".hist": _unported_checker("a distext degree histogram", "distext",
-                               "supervisor"),
+    ".hist": _fsck_hist,
 }
 
 
@@ -180,8 +246,6 @@ def repair_sidecar(path: str) -> str:
 #: state-dir chains of unported modules: (file or marker name, what it
 #: is, the queue items its check waits for)
 _UNPORTED_CHAINS = (
-    ("manifest.json", "the supervisor's manifest and the distext shard map",
-     ("supervisor", "distext")),
     ("reseq.json", "the serve re-sequence generation chain", ("serve",)),
     ("scrub.json", "the serve scrub history chain", ("serve",)),
     ("quarantine.json", "the serve quarantine marker", ("serve",)),
@@ -218,8 +282,9 @@ def fsck_paths(paths, mode: str | None = None):
     results = []
     for root in paths:
         targets = collect_artifacts(root)
+        chain = _manifest_chain_result(root, mode)
         chains = _unported_chain_results(root)
-        if not targets and not chains:
+        if not targets and chain is None and not chains:
             results.append((root, False, "no artifacts found"))
             continue
         for path in targets:
@@ -228,6 +293,25 @@ def fsck_paths(paths, mode: str | None = None):
                 results.append((path, True, detail))
             except (IntegrityError, OSError) as exc:
                 results.append((path, False, str(exc)))
+        if chain is not None:
+            results.append(chain)
         results.extend(chains)
     failures = [r for r in results if not r[1]]
     return results, failures
+
+
+def _manifest_chain_result(root: str, mode: str):
+    """The distext shard-map chain line for a state-dir root,
+    or None when the root is a file / has no manifest / holds a plain
+    tournament."""
+    if not os.path.isdir(root) \
+            or not os.path.exists(os.path.join(root, "manifest.json")):
+        return None
+    mpath = os.path.join(root, "manifest.json")
+    try:
+        detail = fsck_distext_manifest(root, mode)
+    except (IntegrityError, OSError) as exc:
+        return (mpath, False, str(exc))
+    if detail is None:
+        return None
+    return (mpath, True, detail)

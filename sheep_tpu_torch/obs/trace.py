@@ -510,3 +510,28 @@ def read_trace(path: str, mode: str | None = None):
                   "clean prefix)")
     warnings.warn(msg + "; salvaging the clean prefix")
     return records, tail_off, True
+
+
+def rollup(records: list[dict]) -> dict:
+    """Aggregate span records into the per-phase rollup:
+    {name: {count, total_s, max_s}} plus "_events" counts by name (what
+    ``supervise --status`` shows of a state dir's newest trace)."""
+    phases: dict = {}
+    events: dict[str, int] = {}
+    for r in records:
+        k = r.get("k")
+        if k == "span":
+            acc = phases.setdefault(
+                r.get("name", "?"),
+                {"count": 0, "total_s": 0.0, "max_s": 0.0})
+            acc["count"] += 1
+            dur = float(r.get("dur", 0.0))
+            acc["total_s"] = round(acc["total_s"] + dur, 6)
+            acc["max_s"] = round(max(acc["max_s"], dur), 6)
+        elif k == "ev":
+            name = r.get("name", "?")
+            events[name] = events.get(name, 0) + 1
+    out = dict(sorted(phases.items()))
+    if events:
+        out["_events"] = dict(sorted(events.items()))
+    return out

@@ -7,13 +7,16 @@ the port of sheep_tpu/ops.
 the reduce loop and the fixpoint; ``sort`` the prep; ``fused_jump`` the
 wrapper of kernel K1 (csrc/fused_jump.cu); ``probe`` the backend probe's
 kernels P1 and P2 (csrc/probe_kernels.cu); ``extmem`` the
-external-memory build over a ``.dat`` file, which is host code.
+external-memory build over a ``.dat`` file and ``distext`` its supervised
+distributed form (record-slice legs, the histogram Allreduce, the
+tournament merge), both host code.
 
 Resolution is lazy (PEP 562), as in the reference: importing this
-package, or its torch-free member ``ops.extmem``, loads no torch.  The
-out-of-core build must fit ``SHEEP_MEM_BUDGET``, and torch's baseline
-footprint would be most of a small budget.  ``from sheep_tpu_torch.ops
-import build_graph_hybrid`` loads torch at that moment.
+package, or its torch-free members ``ops.extmem`` and ``ops.distext``,
+loads no torch.  The out-of-core builds must fit ``SHEEP_MEM_BUDGET``,
+and torch's baseline footprint would be most of a small budget.
+``from sheep_tpu_torch.ops import build_graph_hybrid`` loads torch at
+that moment.
 """
 
 _LAZY = {
@@ -41,6 +44,9 @@ _LAZY = {
     "range_degree_histogram": "extmem",
     "should_use_extmem": "extmem",
     "streaming_degree_sequence": "extmem",
+    # .distext (torch-free)
+    "run_distext": "distext",
+    "should_use_distext": "distext",
 }
 
 __all__ = sorted(_LAZY)

@@ -124,8 +124,8 @@ def range_degree_histogram(path: str, block_edges: int | None = None,
 
     Integer adds commute, so summing the per-range histograms of a
     disjoint cover of the file IS the whole-file histogram bit for bit —
-    the Allreduce-shaped merge the distributed out-of-core build (the
-    reference's ops/distext.py) runs between its two passes.
+    the Allreduce-shaped merge the distributed out-of-core build
+    (ops/distext.py) runs between its two passes.
 
     A typed reader fault (EIO/ENOSPC mid-stream — the ``dat`` I/O fault
     site) retries from the last consumed block: the histogram is exact

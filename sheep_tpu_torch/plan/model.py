@@ -27,8 +27,10 @@ analytic answer.  Priors correct only the MEMORY side (keep/skip
 verdicts, block fitting); measured seconds are reported beside each
 candidate in ``plan --explain`` but never reorder the ladder — rung
 order encodes correctness/availability constraints the clock knows
-nothing about.  The reference's transport, migration, re-sequence and
-scrub pricing come with the serving tier that reads them.
+nothing about.  The distext job's leg count (``plan_distext_legs``)
+and its transport decision (``plan_transport``) are priced here; the
+reference's migration, re-sequence and scrub pricing come with the
+serving tier that reads them.
 """
 
 from __future__ import annotations
@@ -395,3 +397,95 @@ def plan_build(n: int, links: int, *,
                 decisions=decisions, native_threads=dict(tplan),
                 headroom_bytes=head, budget_bytes=gov.mem_budget,
                 rss=rss)
+
+
+def plan_distext_legs(n: int = 0,
+                      governor: ResourceGovernor | None = None,
+                      priors: PriorStore | None = None) -> dict:
+    """The distext leg planner, routed through the plan layer: the
+    governor's arithmetic (distext_leg_plan) plus the decision
+    record.  Returns the governor dict EXTENDED with ``provenance`` —
+    existing consumers (ops/distext.run_distext) read the same keys."""
+    gov = governor if governor is not None else ResourceGovernor.from_env()
+    out = distext_leg_plan(n, gov)
+    if out["forced"]:
+        out["provenance"] = PROV_FORCED
+    else:
+        free = distext_leg_plan(
+            n, ResourceGovernor(mem_budget=None,
+                                disk_budget=gov.disk_budget,
+                                scratch_dir=gov.scratch_dir))
+        out["provenance"] = PROV_PRICED if out["legs"] < free["legs"] \
+            else PROV_DEFAULT
+    return out
+
+
+#: the transport cost model's assumed bandwidths: sequential
+#: local disk stream vs one worker-wire crossing.  Deliberately coarse
+#: round numbers — the decision only has to be right about the SHAPE
+#: (waves of legs over cores vs waves over workers), and the pin knob
+#: (SHEEP_WORKER_TRANSPORT) is the operator's word when it is not.
+TRANSPORT_DISK_BPS = 256 << 20
+TRANSPORT_WIRE_BPS = 128 << 20
+
+#: pin the per-leg transport decision: "ship" | "local" | "" (priced)
+WORKER_TRANSPORT_ENV = "SHEEP_WORKER_TRANSPORT"
+
+
+def plan_transport(records: int, legs: int, remote_workers: int,
+                   pin: str | None = None,
+                   host_cores: int | None = None) -> dict:
+    """Price network-ship vs local-disk dispatch for the distext legs
+    (the transport decision recorded in the ``distext.plan`` event).
+
+    The model (PERF_NOTES "network-ship vs local-disk pricing rule"):
+    a LOCAL leg streams its slice from the supervisor's disk, and the
+    legs time-share the host — cost ~= ceil(legs / host_cores) waves of
+    ``slice_bytes / DISK_BPS``.  A SHIPPED leg pays one wire crossing,
+    then folds on a worker's own core; crossings pipeline with the
+    previous wave's folds (the prefetch-overlap shape), so cost ~=
+    ceil(legs / workers) disk-speed waves plus ONE un-overlapped first
+    crossing.  Ship wins only when it is STRICTLY cheaper — on a tie the
+    bytes stay home.  No remote workers configured = "local" by default;
+    ``SHEEP_WORKER_TRANSPORT`` pins either way (provenance "forced")."""
+    if pin is None:
+        pin = os.environ.get(WORKER_TRANSPORT_ENV, "")
+    legs = max(1, int(legs))
+    per_leg_bytes = (max(0, int(records)) * 12) // legs
+    out = {"per_leg_bytes": per_leg_bytes, "remote_workers":
+           int(remote_workers), "ship_s": None, "local_s": None,
+           "reason": ""}
+    if pin in ("ship", "local"):
+        out.update(transport=pin, provenance=PROV_FORCED,
+                   reason=f"pinned by {WORKER_TRANSPORT_ENV}")
+        return out
+    if pin:
+        raise ValueError(f"{WORKER_TRANSPORT_ENV}={pin!r} must be "
+                         f"'ship' or 'local'")
+    if remote_workers < 1:
+        out.update(transport="local", provenance=PROV_DEFAULT,
+                   reason="no remote workers configured")
+        return out
+    if host_cores is None:
+        try:
+            host_cores = len(os.sched_getaffinity(0))
+        except (AttributeError, OSError):
+            host_cores = os.cpu_count() or 1
+    stream_s = per_leg_bytes / TRANSPORT_DISK_BPS
+    wire_s = per_leg_bytes / TRANSPORT_WIRE_BPS
+    local_waves = -(-legs // max(1, host_cores))
+    ship_waves = -(-legs // max(1, remote_workers))
+    local_s = local_waves * stream_s
+    ship_s = ship_waves * stream_s + wire_s
+    out.update(ship_s=round(ship_s, 6), local_s=round(local_s, 6))
+    if ship_s < local_s:
+        out.update(transport="ship", provenance=PROV_PRICED,
+                   reason=f"{remote_workers} worker(s) beat "
+                          f"{host_cores} local core(s): "
+                          f"{ship_waves} shipped wave(s) + one wire "
+                          f"crossing < {local_waves} local wave(s)")
+    else:
+        out.update(transport="local", provenance=PROV_PRICED,
+                   reason="shipping the slices does not beat the local "
+                          "disk waves")
+    return out

@@ -313,8 +313,8 @@ def distext_leg_plan(n: int = 0, governor: "ResourceGovernor | None" = None
     """The distext planner's ARITHMETIC: how many supervised ext legs to
     shard a ``.dat`` across, and what one leg's priced peak is.  The
     build planner (plan/model.py) records it as the ``distext_legs``
-    decision; the distributed out-of-core build that runs the legs waits
-    for its port (ROADMAP.md §1).
+    decision (``plan_distext_legs``), which the distributed out-of-core
+    build (ops/distext.py) shards its input by.
 
     ``SHEEP_DISTEXT_LEGS`` pins N (the operator's word).  Otherwise N
     starts at the host's concurrency budget — ``host_cores //

@@ -194,12 +194,47 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
        "stderr phase timers inside the native kernels (dev observability; "
        "read by the C++ runtime)"),
     # -- supervisor --------------------------------------------------------
+    _K("SHEEP_DEADLINE_S", "float", "30",
+       "supervisor",
+       "heartbeat wall-clock deadline; a worker silent past this is dead"),
+    _K("SHEEP_STALE_POLLS", "int", "0",
+       "supervisor",
+       "declare a silent worker dead after this many consecutive beat-free "
+       "supervisor polls instead of wall clock alone (deterministic under "
+       "whole-process stalls; 0 = off)"),
     _K("SHEEP_HEARTBEAT_S", "float", "1",
        "supervisor",
        "worker heartbeat interval"),
     _K("SHEEP_HEARTBEAT_FILE", "path", "",
        "supervisor",
        "where a worker beats (set per attempt by the supervisor's runner)"),
+    _K("SHEEP_SPECULATE_S", "float", "",
+       "supervisor",
+       "age at which a still-beating straggler gets a speculative twin "
+       "(unset = off)"),
+    _K("SHEEP_FAULT_PLAN", "plan", "",
+       "supervisor",
+       "deterministic tournament chaos kind@round:leg "
+       "(kill/corrupt/hang/stop)"),
+    # -- remote build workers (read for the transport decision; the
+    # -- dispatch arm waits for the serving tier) -------------------------
+    _K("SHEEP_WORKER_ADDRS", "list", "",
+       "worker",
+       "remote build workers host:port the distext supervisor may ship "
+       "legs to (unset = local legs only)"),
+    _K("SHEEP_WORKER_BEAT_S", "float", "1",
+       "worker",
+       "wire heartbeat interval for remote legs (BEAT frames; feeds the "
+       "same staleness machinery as local .hb mtimes)"),
+    _K("SHEEP_WORKER_SPECULATE_S", "float", "",
+       "worker",
+       "silent-wire age (since the last BEAT) at which a remote leg gets a "
+       "speculative twin; first finisher wins (unset = generic "
+       "SHEEP_SPECULATE_S only)"),
+    _K("SHEEP_WORKER_TRANSPORT", "str", "",
+       "worker",
+       "pin the per-leg transport decision: ship / local (unset = the "
+       "planner prices network-ship vs local-disk)"),
     # -- io ----------------------------------------------------------------
     _K("SHEEP_IO_FAULT_PLAN", "plan", "",
        "io",

@@ -127,6 +127,15 @@ ROUTES = {
     "plan": ("plan", ["--explain", HEP],
              {"SHEEP_MEM_BUDGET": "1G"}, False),
     "plan_hypothetical": ("plan", ["--json", "-n", "4096"], {}, False),
+    # the tournament supervisor and the distributed out-of-core build
+    # (their legs are tests/test_torch_supervisor.py's and
+    # tests/test_torch_distext.py's)
+    "supervise": ("supervise", [HEP, "-w", "2", "-d", "st", "-o", "t.tre"],
+                  {}, False),
+    "distext": ("graph2tree", [HEP, "--distext", "-o", "t.tre"],
+                {"SHEEP_DISTEXT_LEGS": "2"}, False),
+    "distext_leg": ("distext", ["hist", HEP, "-r", "0:5000", "-o",
+                                "x.hist"], {}, False),
     # the routes that reach the card load torch, as before
     "mesh": ("graph2tree", [HEP, "-i", "-r", "-f"], {}, True),
     "checkpoint_serial": ("graph2tree", [HEP, "--checkpoint-dir", "ck"],

@@ -12,19 +12,22 @@ The external-memory and treewidth routes, which raised until their
 modules came over, are held against the reference the same way
 (``test_ext_and_jxn_routes_equal_reference``; a memory budget routes by
 the headroom over the process's RSS, so those cases pin the RSS both
-packages read).  The ``plan`` tool is held against the reference's
-(``test_plan_equals_reference``).  The device routes on a mesh of more
+packages read).  The distributed out-of-core build, whose legs are
+processes of their own, is held the same way
+(``test_distext_routes_equal_reference``).  The ``plan`` tool is held
+against the reference's (``test_plan_equals_reference``).  The device routes on a mesh of more
 than one worker run the reference on that many CPU devices and the port
 on that many CPU workers (``test_mesh_route_equals_reference``); a job
 of one process joins through SHEEP_COORDINATOR
 (``test_coordinator_joins_a_job_of_one``; two processes are
 tests/test_torch_distributed.py's).  Routes the port has not ported
-raise SystemExit naming their ROADMAP.md queue item, and never fall back
-to another route (``test_unported_route_raises``).
+fail naming their ROADMAP.md queue item, and never fall back to another
+route (``test_unported_route_raises``).
 """
 
 import contextlib
 import io
+import json
 import os
 import re
 import socket
@@ -37,8 +40,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEP = os.path.join(REPO, "data", "hep-th.dat")
 
-#: files whose bytes name a process or a clock (heartbeats)
-_VOLATILE = (".hb",)
+#: files whose bytes name a process or a clock (heartbeats, the distext
+#: legs' self-reports)
+_VOLATILE = (".hb", ".perf.json")
 
 
 def ref_env(extra: dict, devices: int = 1) -> dict:
@@ -58,8 +62,10 @@ def ref_env(extra: dict, devices: int = 1) -> dict:
 
 
 def stable_lines(out: str) -> list:
-    """stdout less the timing lines."""
-    return [ln for ln in out.splitlines()
+    """stdout less the timing lines, the supervisor's phase times masked
+    (``Mapped in 1.23 seconds.``)."""
+    return [re.sub(r" in [0-9.]+ seconds\.$", " in T seconds.", ln)
+            for ln in out.splitlines()
             if " in: " not in ln and " took: " not in ln]
 
 
@@ -465,37 +471,78 @@ def test_plan_equals_reference(tmp_path, monkeypatch, case):
     _run_steps(tmp_path, steps, rss=PINNED_RSS, monkeypatch=monkeypatch)
 
 
+#: the distributed out-of-core build (its legs are processes of their
+#: own): id -> (steps, pin the RSS)
+DISTEXT = {
+    # SHEEP_LEG_CORES past the host's cores: the planner's floor of 2 legs
+    "distext_flag": ([G("--distext", "-o", "t.tre",
+                        env={"SHEEP_LEG_CORES": "1024"})], False),
+    "distext_env_verbose": ([G("-o", "t.tre", "-v", "-f",
+                               env={"SHEEP_DISTEXT_LEGS": "3"})], False),
+    # a headroom below the ext rung's floor block routes to distext
+    "distext_budget": ([G("-o", "t.tre", env={
+        "SHEEP_MEM_BUDGET": str(PINNED_RSS + 300_000),
+        "SHEEP_LEG_CORES": "1024"})], True),
+    "distext_checkpoint_dir_rerun": (
+        [G("--distext", "--checkpoint-dir", "ck", "-o", "t.tre",
+           env={"SHEEP_DISTEXT_LEGS": "2"}),
+         G("--distext", "--checkpoint-dir", "ck", "-o", "t.tre",
+           env={"SHEEP_DISTEXT_LEGS": "2"})], False),
+    "distext_chaos": ([G("--distext", "-o", "t.tre", env={
+        "SHEEP_DISTEXT_LEGS": "2",
+        "SHEEP_FAULT_PLAN": "kill@-2:1,corrupt@0:0"})], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISTEXT))
+def test_distext_routes_equal_reference(tmp_path, monkeypatch, case):
+    """The routes that raised until ops/distext.py and supervisor/ came
+    over: the same exit codes, stdout, and state-dir and tree bytes (the
+    manifest, sidecars, histograms and partial trees) as the reference,
+    each leg a process of its own."""
+    steps, pin = DISTEXT[case]
+    got = _run_steps(tmp_path, steps, rss=PINNED_RSS if pin else None,
+                     monkeypatch=monkeypatch)
+    state = "ck" if "checkpoint" in case else "t.tre.distext"
+    assert got["t.tre"] == got[os.path.join(state, "hep-th.tre")]
+    legs = json.loads(got[os.path.join(state, "manifest.json")])["legs"]
+    dispatches = {leg["key"]: leg["dispatches"] for leg in legs}
+    if case == "distext_chaos":
+        assert dispatches["h.01"] == dispatches["r0.00"] == 2
+    else:
+        assert set(dispatches.values()) == {1}
+
+
 #: routes that wait for a queue item: (argv, env, QUEUE key)
 UNPORTED = {
-    "distext_flag": (["--distext", "-o", "t.tre"], {}, "distext"),
-    "distext_env": (["-o", "t.tre"], {"SHEEP_DISTEXT_LEGS": "2"},
-                    "distext"),
-    "distext_budget": (["-o", "t.tre"], {"SHEEP_MEM_BUDGET": "2G"},
-                       "distext"),
+    "distext_ship": (["--distext", "-o", "t.tre"],
+                     {"SHEEP_WORKER_ADDRS": "127.0.0.1:1",
+                      "SHEEP_WORKER_TRANSPORT": "ship"}, "serve"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_route_raises(tmp_path, monkeypatch, case):
-    """Each unported route raises SystemExit naming its queue item before
-    it writes anything; none falls back to another route."""
+    """Each unported route fails naming its queue item before it
+    dispatches any work; none falls back to another route."""
     from sheep_tpu_torch import QUEUE
     from sheep_tpu_torch.cli import graph2tree
-    from sheep_tpu_torch.resources import governor
 
     argv, env, key = UNPORTED[case]
-    if env.get("SHEEP_MEM_BUDGET"):
-        # a budget whose headroom (budget less RSS) is what the route
-        # prices: below the ext rung's floor block
-        rss = governor.rss_bytes()
-        env = {"SHEEP_MEM_BUDGET": str(rss + (1 << 19))}
-        monkeypatch.setattr(governor, "rss_bytes", lambda: rss)
     monkeypatch.chdir(tmp_path)
-    with port_env(env), pytest.raises(SystemExit) as exc:
-        graph2tree.main([HEP, *argv], device="cpu")
-    msg = str(exc.value.code)
+    err = io.StringIO()
+    with port_env(env), contextlib.redirect_stderr(err):
+        rc = graph2tree.main([HEP, *argv], device="cpu")
+    msg = err.getvalue()
+    assert rc == 1
     assert QUEUE[key] in msg and "ROADMAP.md" in msg, msg
-    assert os.listdir(tmp_path) == []
+    # the planned job's manifest only: no leg ran, no tree was written
+    assert sorted(os.listdir(tmp_path)) == ["t.tre.distext"]
+    state = tmp_path / "t.tre.distext"
+    assert sorted(os.listdir(state)) == ["manifest.json",
+                                         "manifest.json.sum"]
+    legs = json.loads((state / "manifest.json").read_text())["legs"]
+    assert {leg["dispatches"] for leg in legs} == {0}
 
 
 #: the device routes on a mesh of more than one worker: id -> (CPU

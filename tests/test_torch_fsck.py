@@ -1,7 +1,9 @@
 """The port's fsck (integrity/fsck.py, cli/fsck.py) against the
 reference's: a clean trial directory, each artifact class fuzzed under
-each policy, ``--repair-sidecar``, and the artifacts of unported modules,
-which are reported as failures naming their ROADMAP.md queue item."""
+each policy, a distext state dir (its ``.hist`` histograms and its
+manifest's shard-map chain) clean and fuzzed, ``--repair-sidecar``, and
+the artifacts of unported modules, which are reported as failures naming
+their ROADMAP.md queue item."""
 
 import contextlib
 import io
@@ -129,7 +131,6 @@ def test_cli_equals_reference(tmp_path, argv):
 
 UNPORTED = {
     "serve.wal": "serve", "snap-000000000001.snap": "serve",
-    "leg0.hist": "distext", "manifest.json": "supervisor",
     "reseq.json": "serve", "scrub.json": "serve",
     "quarantine.json": "serve", "old.tre.quarantined": "serve",
 }
@@ -150,8 +151,59 @@ def test_unported_artifact_is_a_failure(tmp_path, name):
     assert rc == 1
     assert f"FAIL {os.path.join(d, name)}:" in out
     rc, out = _run_cli(port_cli, ["-R", os.path.join(d, name)], d)
-    if name.endswith((".wal", ".snap", ".hist")):
+    if name.endswith((".wal", ".snap")):
         assert rc == 1 and "FAIL" in out  # never resealed
+
+
+#: a distext state dir's artifacts that only its modules can check
+DISTEXT = ("g00.hist", "g01.hist", "manifest.json")
+
+
+def _distext_dir(root) -> str:
+    """A finished two-leg distext job's state dir, made by the port."""
+    from sheep_tpu_torch.io import write_dat
+    from sheep_tpu_torch.ops.distext import run_distext
+    from sheep_tpu_torch.supervisor import InlineRunner, SupervisorConfig
+    rng = np.random.default_rng(13)
+    tail = rng.integers(0, 300, 900).astype(np.uint32)
+    head = rng.integers(0, 300, 900).astype(np.uint32)
+    graph = os.path.join(str(root), "g.dat")
+    write_dat(graph, tail, head)
+    st = os.path.join(str(root), "st")
+    run_distext(graph, st, SupervisorConfig(poll_s=0.01, grammar=False),
+                runner=InlineRunner(0.05), legs=2)
+    return st
+
+
+def test_distext_dir_equals_reference(tmp_path):
+    """The reference's lines for every artifact of a distext state dir,
+    the ``.hist`` histograms and the manifest chain included, through
+    the library and the tool."""
+    st = _distext_dir(tmp_path)
+    got = _results(port_fsck, [st], None)
+    assert got == _results(ref_fsck, [st], None)
+    assert got[1] == 0
+    assert [r[0] for r in got[0]][-1] == os.path.join(st, "manifest.json")
+    assert "shard-map-ok" in got[0][-1][2]
+    for argv in ([st], ["-q", st], [os.path.join(st, "g00.hist")]):
+        assert _run_cli(port_cli, argv, st) == _run_cli(ref_cli, argv, st)
+
+
+@pytest.mark.parametrize("mode", ["strict", "repair", "trust"])
+@pytest.mark.parametrize("kind", ["flip", "truncate", "append"])
+@pytest.mark.parametrize("name", DISTEXT)
+def test_fuzzed_distext_artifact_equals_reference(tmp_path, name, kind,
+                                                  mode):
+    st = _distext_dir(tmp_path)
+    _fuzz(os.path.join(st, name), kind)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = _results(port_fsck, [st], mode)
+        want = _results(ref_fsck, [st], mode)
+    assert got == want
+    if mode == "strict":
+        assert got[1] >= 1, "strict fsck passed a fuzzed artifact"
 
 
 def test_repair_sidecar_reseals_a_copied_tree(tmp_path):

@@ -4,6 +4,7 @@ on CUDA unless the caller names the CPU."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -39,7 +40,13 @@ NEW_MODULES = (
     "sheep_tpu_torch.supervisor.heartbeat", "sheep_tpu_torch.utils.knobs",
     # the external-memory build, the treewidth mode and the planner tool
     "sheep_tpu_torch.ops.extmem", "sheep_tpu_torch.core.jxn",
-    "sheep_tpu_torch.cli.plan", "sheep_tpu_torch.runtime.config")
+    "sheep_tpu_torch.cli.plan", "sheep_tpu_torch.runtime.config",
+    # the tournament supervisor and the distributed out-of-core build
+    "sheep_tpu_torch.supervisor.manifest", "sheep_tpu_torch.supervisor.chaos",
+    "sheep_tpu_torch.supervisor.supervise",
+    "sheep_tpu_torch.supervisor.status", "sheep_tpu_torch.ops.distext",
+    "sheep_tpu_torch.cli.distext", "sheep_tpu_torch.cli.supervise",
+    "sheep_tpu_torch.obs.metrics")
 
 #: modules a host route imports: none may load torch on import
 TORCH_FREE = (
@@ -54,7 +61,12 @@ TORCH_FREE = (
     "sheep_tpu_torch.cli.common", "sheep_tpu_torch.cli.graph2tree",
     "sheep_tpu_torch.cli.degree_sequence", "sheep_tpu_torch.cli.make_graph",
     "sheep_tpu_torch.cli.partition_tree", "sheep_tpu_torch.cli.merge_trees",
-    "sheep_tpu_torch.cli.fsck", "sheep_tpu_torch.cli.plan")
+    "sheep_tpu_torch.cli.fsck", "sheep_tpu_torch.cli.plan",
+    "sheep_tpu_torch.supervisor", "sheep_tpu_torch.supervisor.manifest",
+    "sheep_tpu_torch.supervisor.chaos", "sheep_tpu_torch.supervisor.supervise",
+    "sheep_tpu_torch.supervisor.status", "sheep_tpu_torch.ops.distext",
+    "sheep_tpu_torch.cli.distext", "sheep_tpu_torch.cli.supervise",
+    "sheep_tpu_torch.obs.metrics")
 
 
 def _modules():
@@ -104,6 +116,7 @@ def test_host_modules_load_no_torch():
             "    importlib.import_module(m)\n"
             "from sheep_tpu_torch.runtime import RuntimeConfig\n"
             "from sheep_tpu_torch.ops import build_forest_extmem\n"
+            "from sheep_tpu_torch.ops import run_distext\n"
             "print('torch' in sys.modules)\n"
             "from sheep_tpu_torch.ops import build_graph_hybrid\n"
             "from sheep_tpu_torch.runtime import build_graph_resilient\n"
@@ -138,7 +151,8 @@ def test_lazy_packages_resolve_every_name():
     "sheep_tpu_torch/obs", "sheep_tpu_torch/io",
     # the CLI and what it stands on
     "sheep_tpu_torch/cli", "sheep_tpu_torch/parallel",
-    "sheep_tpu_torch/supervisor", "sheep_tpu_torch/utils"])
+    "sheep_tpu_torch/supervisor", "sheep_tpu_torch/utils",
+    "sheep_tpu_torch/ops"])
 def test_source_imports_no_jax_and_no_sheep_tpu(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -156,6 +170,18 @@ def test_source_imports_no_jax_and_no_sheep_tpu(path):
                 continue
             for name in names:
                 assert not _forbidden(name), f"{fn}: imports {name}"
+
+
+def test_source_names_no_reference_tool_to_run():
+    """No module path of the reference's tools (``sheep_tpu.cli.<tool>``)
+    appears anywhere in the port's sources, strings included: a runner
+    that started one would run the reference's legs."""
+    pattern = re.compile(r"sheep_tpu\.cli\.")
+    for root, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                text = open(os.path.join(root, fn)).read()
+                assert not pattern.search(text), fn
 
 
 def test_forbidden_rule_matches_whole_module_names():
