@@ -128,6 +128,27 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    checkpoint lands, re-dispatched alone and resumed from the
    checkpoint; the tight-budget auto-route (``graph2tree.main`` in this
    process, no ``--distext``), each tree the same;
+9g. the analysis tools (``tools`` line), host code: the six tools
+   (``tree2dot``, ``tree2adj``, ``graph2adj``, ``vfennel``, ``efennel``,
+   ``read_partition``), each a process started as the ``util/`` shims
+   start the reference's, on hep-th (the golden lines: ECV(down) 521,
+   2811 edges cut, sizes 3409/4201), then ``vfennel``, ``efennel`` and
+   ``read_partition`` on 9c's 2^23 x 8 G.dat (read_partition's report
+   equal to 9b's at 2 parts); each one's wall and sampled peak RSS, torch
+   mapped into none;
+9h. the serve store (``serve`` line), host code in a child process that
+   never loads torch (``python -m sheep_tpu_torch.scripts.serve_drive
+   run``, its process tree sampled): ``ServeCore.bootstrap`` on 9c's
+   T.tre/S2.seq (built on the card through K1) with G.dat as the graph,
+   2 parts; 2^16 inserts of ``rmat_edges(23, 2^16, seed=5)`` in batches
+   of 64 from 4 threads beside part and subtree queries of 2^10 vids,
+   killed by ``SHEEP_SERVE_FAULT_PLAN`` at the 512th insert and
+   reopened (no acknowledged insert lost; the state equal to the log
+   replayed into a copy of the fresh dir); ``seal_snapshot``, a
+   re-sequence equal to the host oracle and one killed at its fold and
+   resumed, equal to it; ``ecv()`` equal to the evaluator; ``fsck`` of
+   the state dirs passing and of a WAL with one byte flipped failing;
+   bootstrap, insert, query, fsync, recovery and re-sequence figures;
 10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
     single -> host -> stream -> spill, checkpoints in a temporary
     directory) on the real-size graph: equal to the oracle, no degrade,
@@ -135,12 +156,18 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
     phase 6, prep/rung/enqueue seconds from the build's own trace
     (SHEEP_TRACE), the loop's device waits, boundary fetches, host
     assists and remaps, each snapshot's seconds and bytes, peak device
-    memory;
+    memory; its trace is kept for 10c;
+10c. the ``trace`` tool (``trace`` line), as processes: on 10's trace
+    (the rung explanation names the plan and every rung the build's
+    events record, ``--json`` the same lines), and ``--merge`` of 9h's
+    two store processes (the killed one and its restart), where the
+    killed request's id joins records of both;
 10b. the sharded mesh build (``mesh`` line): the port's mesh given W
     workers on the one card through the ``parallel.mesh.mesh_devices``
-    seam; on the real-size graph ``build_graph_distributed`` at W = 2 and
-    4, and on rmat_edges(22, 2^25, seed=0) at W = 8 (the chunked build,
-    unified global rounds), the split form
+    seam; ``build_graph_distributed`` (the chunked build, unified global
+    rounds) on the real-size graph at W = 2 and, for the script's time,
+    on rmat_edges(22, 2^25, seed=0) at W = 4 and 8; on that graph too the
+    split form
     (``unified=False``) and the map-only partials merged on the card by
     ``merge_forests_device`` at W = 4, and the fault-tolerant build from
     its ``mesh`` rung at W = 4 with checkpoints (no degrade); on
@@ -1193,6 +1220,12 @@ HEP_BIPARTITION = {"edges_cut": 2811, "vcom_vol": 2061, "ecv_hash": 1311,
                    "ecv_down": 521, "ecv_up": 1539}
 
 
+#: the part counts at which the partition phase also runs the in-memory
+#: evaluator at real size (the ``tools`` phase's read_partition runs it at
+#: 2 parts)
+DENSE_EVAL_PARTS = (64,)
+
+
 def partition_phase(device: torch.device, real, small,
                     real_parts=(2, 16, 64), eval_parts=(2, 64),
                     block: int = 1 << 24):
@@ -1201,8 +1234,11 @@ def partition_phase(device: torch.device, real, small,
     the golden 2-part report; four partial hep-th forests built on the
     card over one sequence, merged to the whole tree; the native forward
     pass against the python one on ``small``; the real-size tree at
-    ``real_parts`` parts, and at ``eval_parts`` of them the in-memory
-    evaluator against the streamed one, each timed."""
+    ``real_parts`` parts, at ``eval_parts`` of them the streamed
+    evaluator (its printed report kept) and at DENSE_EVAL_PARTS the
+    in-memory one against it, each timed (the ``tools`` phase holds
+    ``read_partition``'s in-memory report against the streamed one at 2
+    parts)."""
     from sheep_tpu_torch.core import (build_forest, degree_sequence,
                                       merge_forests, sequence_positions)
     from sheep_tpu_torch.io import load_edges, read_dat
@@ -1289,22 +1325,29 @@ def partition_phase(device: torch.device, real, small,
             rec["real"].append({"parts": p, "partition_s": part_s,
                                 "created": part.max_part + 1})
             continue
-        dense, dense_s = timed_call(
-            lambda: evaluate_partition(part.parts, tail, head, rseq, p,
-                                       max_vid=mv, file_edges=len(tail)))
         stream, stream_s = timed_call(
             lambda: evaluate_partition_streamed(
                 part.parts, lambda: _blocks(tail, head, block), pos, p,
                 len(tail)))
-        if vars(dense) != vars(stream):
-            raise AssertionError(f"partition: the evaluators differ at {p} "
-                                 f"parts: {vars(dense)} vs {vars(stream)}")
-        rec["real"].append({"parts": p, "partition_s": part_s,
-                            "evaluate_s": dense_s,
-                            "evaluate_streamed_s": stream_s,
-                            "created": part.max_part + 1,
-                            "ecv_down": dense.ecv_down,
-                            "edges_cut": dense.edges_cut})
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stream.print()
+        entry = {"parts": p, "partition_s": part_s,
+                 "evaluate_streamed_s": stream_s,
+                 "created": part.max_part + 1,
+                 "ecv_down": stream.ecv_down,
+                 "edges_cut": stream.edges_cut,
+                 "report": buf.getvalue().splitlines()}
+        if p in DENSE_EVAL_PARTS:
+            dense, entry["evaluate_s"] = timed_call(
+                lambda: evaluate_partition(part.parts, tail, head, rseq, p,
+                                           max_vid=mv,
+                                           file_edges=len(tail)))
+            if vars(dense) != vars(stream):
+                raise AssertionError(
+                    f"partition: the evaluators differ at {p} parts: "
+                    f"{vars(dense)} vs {vars(stream)}")
+        rec["real"].append(entry)
     log("partition " + json.dumps(rec))
     return rec
 
@@ -1934,13 +1977,21 @@ def run_sampled(argv: list, env: dict | None = None, watch=None,
     """``python -m sheep_tpu_torch.cli.<argv[0]> argv[1:]`` as a process
     of its own, its process tree sampled; returns (exit code, stdout,
     stderr, wall s, the sampler)."""
+    return run_cmd_sampled(
+        [sys.executable, "-m", f"sheep_tpu_torch.cli.{argv[0]}"] + argv[1:],
+        env=env, watch=watch, timeout=timeout)
+
+
+def run_cmd_sampled(cmd: list, env: dict | None = None, watch=None,
+                    timeout: int = 900):
+    """``cmd`` as a process of its own, its process tree sampled; returns
+    (exit code, stdout, stderr, wall s, the sampler)."""
     full_env = dict(os.environ)
     full_env.update(env or {})
     t0 = time.perf_counter()
     # a session of its own, so a timeout stops the legs with the parent
     proc = subprocess.Popen(
-        [sys.executable, "-m", f"sheep_tpu_torch.cli.{argv[0]}"] + argv[1:],
-        cwd=ROOT, env=full_env, stdout=subprocess.PIPE,
+        cmd, cwd=ROOT, env=full_env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, start_new_session=True)
     with TreeSampler(proc.pid, watch=watch) as sampler:
         try:
@@ -2389,6 +2440,218 @@ def jxn_phase(device: torch.device, log_n: int = 20, factor: int = 8,
 
 
 
+#: an analysis tool started as the ``util/`` shims start the reference's
+TOOL_SHIM = ("import sys; from sheep_tpu_torch.cli.tools import {tool}; "
+             "sys.exit({tool}())")
+
+
+def run_shim(tool: str, argv: list) -> tuple:
+    """One analysis tool as a process from the checkout's root, its tree
+    sampled; returns (stdout, its record: wall, peak RSS, torch
+    mapped)."""
+    rc, out, err, wall, sampler = run_cmd_sampled(
+        [sys.executable, "-c", TOOL_SHIM.format(tool=tool)] + argv,
+        timeout=600)
+    if rc != 0:
+        raise AssertionError(f"tools: {tool} {' '.join(argv)} exited "
+                             f"{rc}:\n{out}\n{err[-4000:]}")
+    peak = max(r["peak_rss_bytes"] for r in sampler.procs.values())
+    return out, {"wall_s": wall, "peak_rss_bytes": peak,
+                 "torch_mapped": sampler.torch_mapped()}
+
+
+def write_jparts(tre: str, parts: int, path: str) -> None:
+    """A ``parts``-part jnid partition of the tree, as the text file
+    ``read_partition`` reads."""
+    from sheep_tpu_torch.core.forest import Forest
+    from sheep_tpu_torch.io import read_tree
+    from sheep_tpu_torch.partition import partition_forest
+    parent, pst = read_tree(tre)
+    jparts = partition_forest(Forest(parent, pst), parts)
+    with open(path, "w") as f:
+        f.write("\n".join(map(str, jparts.tolist())) + "\n")
+
+
+def tools_phase(gdir: str, part_rec: dict) -> dict:
+    """The six analysis tools (``tools`` line), each a process started as
+    the ``util/`` shims start the reference's: on hep-th (the golden
+    lines: ECV(down) 521, 2811 edges cut, sizes 3409/4201), then
+    ``vfennel``, ``efennel`` and ``read_partition`` on the ``cli``
+    phase's 2^23 x 8 G.dat (read_partition's report equal to the
+    partition phase's at 2 parts); each one's wall and peak RSS, and
+    torch mapped into none."""
+    from sheep_tpu_torch.io import read_sequence
+    from sheep_tpu_torch.partition import Partition
+
+    hep = os.path.join(ROOT, "data", "hep-th.dat")
+    tdir = os.path.join(gdir, "tools")
+    os.makedirs(tdir)
+
+    def t(name):
+        return os.path.join(tdir, name)
+    run_tool("degree_sequence", [hep, t("hep.seq")])
+    run_tool("graph2tree", [hep, "-s", t("hep.seq"), "-o", t("hep.tre")])
+    write_jparts(t("hep.tre"), 2, t("hep.part"))
+    rec, checks, outs = {"hep": {}, "real": {}}, {}, {}
+    for tool, argv in (("tree2dot", [t("hep.tre"), t("hep.dot")]),
+                       ("tree2adj", [t("hep.tre"), t("hep.adj")]),
+                       ("graph2adj", [hep, t("hepg.adj")]),
+                       ("vfennel", [hep, "2"]), ("efennel", [hep, "2"]),
+                       ("read_partition", [hep, t("hep.part")])):
+        outs[tool], rec["hep"][tool] = run_shim(tool, argv)
+    with open(t("hep.dot")) as f:
+        dot = f.read().splitlines()
+    checks["hep_tree2dot"] = (dot[0] == "digraph {" and dot[-1] == "}"
+                              and len(dot) == 7612)
+    with open(t("hep.adj")) as f:
+        checks["hep_tree2adj"] = f.readline().split() == ["7610", "7029",
+                                                          "011"]
+    with open(t("hepg.adj")) as f:
+        checks["hep_graph2adj"] = f.readline().split() == ["7610", "15751",
+                                                           "010"]
+    checks["hep_vfennel"] = ("Actually created 2 partitions." in
+                             outs["vfennel"]
+                             and "ECV(down)" not in outs["vfennel"])
+    checks["hep_efennel"] = "Actually created 2 partitions." in \
+        outs["efennel"]
+    part = Partition.from_file(read_sequence(t("hep.seq")), t("hep.part"))
+    sizes = np.bincount(part.parts[part.parts >= 0]).tolist()
+    checks["hep_read_partition"] = (
+        all(ln in outs["read_partition"]
+            for ln in ("ECV(down): 521 ", "edges cut: 2811 ",
+                       "balance: 4201 "))
+        and sizes == [3409, 4201])
+
+    g = os.path.join(gdir, "G.dat")
+    _, rec["real"]["write_partition_s"] = timed_call(
+        lambda: write_jparts(os.path.join(gdir, "T.tre"), 2, t("G.part")))
+    for tool, argv in (("vfennel", [g, "2"]), ("efennel", [g, "2"]),
+                       ("read_partition", [g, t("G.part")])):
+        outs[tool], rec["real"][tool] = run_shim(tool, argv)
+    want = next(r for r in part_rec["real"] if r["parts"] == 2)
+    checks["real_vfennel"] = "Actually created 2 partitions." in \
+        outs["vfennel"]
+    checks["real_efennel"] = "Actually created 2 partitions." in \
+        outs["efennel"]
+    # the tool's in-memory report, line for line the streamed one's
+    lines = outs["read_partition"].splitlines()
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.startswith("edges cut"))
+    report = lines[start:start + len(want["report"])]
+    checks["real_read_partition"] = report == want["report"]
+    rec["real"]["read_partition_report"] = report
+    checks["no_torch"] = not any(r["torch_mapped"]
+                                 for side in ("hep", "real")
+                                 for r in rec[side].values()
+                                 if isinstance(r, dict))
+    rec["checks"] = checks
+    shutil.rmtree(tdir, ignore_errors=True)
+    log("tools " + json.dumps(rec))
+    if not all(checks.values()):
+        raise AssertionError(f"tools: checks failed: {checks}")
+    return rec
+
+
+#: the re-sequence and ECV steps of the serve phase run on a store over
+#: ``make_graph SERVE_RESEQ_LOG_N 8``: two folds over the real-size 2^26
+#: records do not fit the phase's share of the script's time (PERF.md §4)
+SERVE_RESEQ_LOG_N = 20
+
+
+def serve_phase(gdir: str, work: str, **sizes) -> dict:
+    """The serve store at real size (``serve`` line), in a child process
+    that never loads torch (``python -m
+    sheep_tpu_torch.scripts.serve_drive run``): bootstrapped on the
+    ``cli`` phase's T.tre/S2.seq, which ``graph2tree -i -r`` built on the
+    card through K1, with G.dat as the graph; 2^16 inserts in batches of
+    64 from 4 threads beside part and subtree queries, killed at the
+    512th insert and recovered (no acknowledged insert lost, the state
+    equal to a replay of the log); a re-sequence against the host
+    oracle, and one killed at its fold and resumed, equal to it; ECV
+    against the evaluator; fsck of the state dirs and of a flipped WAL.
+    Its process tree is sampled (peak RSS, torch mapped into none).
+    The re-sequence and ECV steps run at SERVE_RESEQ_LOG_N."""
+    argv = [sys.executable, "-m", "sheep_tpu_torch.scripts.serve_drive",
+            "run", work, "--tree", os.path.join(gdir, "T.tre"),
+            "--seq", os.path.join(gdir, "S2.seq"),
+            "--graph", os.path.join(gdir, "G.dat")]
+    for k, v in sizes.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    cut = os.path.join(gdir, f"G{SERVE_RESEQ_LOG_N}.dat")
+    run_tool("make_graph", [str(SERVE_RESEQ_LOG_N), "8", cut, "0"])
+    argv += ["--reseq-graph", cut, "--reseq-log-n", str(SERVE_RESEQ_LOG_N)]
+    rc, out, err, wall, sampler = run_cmd_sampled(argv, timeout=900)
+    found = [ln for ln in out.splitlines() if ln.startswith("serve_record ")]
+    if rc != 0 or not found:
+        raise AssertionError(f"serve: the drive exited {rc}:\n{out[-4000:]}"
+                             f"\n{err[-4000:]}")
+    rec = json.loads(found[-1].split(" ", 1)[1])
+    rec["wall_s"] = wall
+    rec["peak_rss_bytes"] = max(r["peak_rss_bytes"]
+                                for r in sampler.procs.values())
+    rec["torch_mapped"] = sampler.torch_mapped()
+    rec["processes"] = len(sampler.procs)
+    rec["traces"] = [os.path.join(work, "traces", name)
+                     for name in ("killed.trace", "restart.trace")]
+    log("serve " + json.dumps(rec))
+    if rec["torch_mapped"] or not all(rec["checks"].values()):
+        raise AssertionError(f"serve: checks failed: {rec['checks']}, "
+                             f"torch mapped: {rec['torch_mapped']}")
+    return rec
+
+
+def trace_phase(build_trace: str, serve_rec: dict) -> dict:
+    """The ``trace`` tool (``trace`` line), as processes: on the
+    real-size resilient build's trace, whose rung explanation must name
+    the plan and every rung the build's events record (and ``--json``
+    the same lines); then ``--merge`` of the serve phase's two store
+    processes (the killed one and its restart), in which the killed
+    request's id must join records of both."""
+    from sheep_tpu_torch.obs.trace import read_trace
+
+    def run(argv):
+        out, wall, _ = run_tool("trace", argv)
+        return out, wall
+
+    rec, checks = {}, {}
+    out, rec["explain_s"] = run([build_trace])
+    records, _, _ = read_trace(build_trace, "strict")
+    evs = [r for r in records if r["k"] == "ev"]
+    ran = [r["a"]["rung"] for r in evs if r["name"] == "rung.ok"]
+    plans = [r["a"]["rungs"] for r in evs if r["name"] == "ladder.plan"]
+    checks["names_every_rung_run"] = bool(ran) and all(
+        f"ran: rung '{r}'" in out for r in ran)
+    checks["names_the_plan"] = bool(plans) and all(
+        f"ladder plan: {' -> '.join(p)}" in out for p in plans)
+    js, _ = run(["--json", build_trace])
+    ladder = json.loads(js)["ladder"]
+    checks["json_same_ladder"] = all(ln in out for ln in ladder)
+    rec["ran"], rec["ladder"] = ran, ladder
+    out, rec["merge_s"] = run(["--merge", "--json", *serve_rec["traces"]])
+    merged = json.loads(out)
+    labels = [f["label"] for f in merged["files"]]
+    rid = serve_rec["kill_rid"]
+    srcs = sorted({r["src"] for r in merged["rids"].get(rid, [])})
+    checks["kill_rid_in_both"] = len(labels) == 2 and srcs == sorted(labels)
+    file_rids = []
+    for path in serve_rec["traces"]:
+        recs, _, _ = read_trace(path, "repair")
+        file_rids.append({r["rid"] for r in recs if "rid" in r})
+    checks["merged_rids_are_the_files"] = \
+        set(merged["rids"]) == file_rids[0] | file_rids[1]
+    rec["rids"] = {"merged": len(merged["rids"]), "killed": len(file_rids[0]),
+                   "restart": len(file_rids[1]),
+                   "both": len(file_rids[0] & file_rids[1])}
+    rec["files"] = merged["files"]
+    out, _ = run(["--merge", "--rid", rid, *serve_rec["traces"]])
+    checks["merge_renders_the_rid"] = rid in out
+    rec["checks"] = checks
+    log("trace " + json.dumps(rec))
+    if not all(checks.values()):
+        raise AssertionError(f"trace: checks failed: {checks}")
+    return rec
+
+
 class SaveRecorder:
     """Times every checkpoint save of the fault-tolerant build and reads
     the snapshot's size on disk, with no knob in the package: it wraps
@@ -2503,14 +2766,16 @@ def event_kinds(cfg) -> dict:
     return kinds
 
 
-def resilient_real(device, data, hybrid_wall: float):
+def resilient_real(device, data, hybrid_wall: float,
+                   keep_trace: str | None = None):
     """The fault-tolerant build at real size on the card: equal to the
     oracle, no degrade, K1 launched on the single rung; its wall beside
     the streamed hybrid's, and its parts from the build's own trace
     (SHEEP_TRACE: the prep and rung spans, the dispatch spans), from
     :class:`SaveRecorder` (each snapshot's seconds and bytes) and from
     :class:`LoopRecorder` (the loop's device waits, boundary fetches,
-    host assists and remaps)."""
+    host assists and remaps).  ``keep_trace``: where to copy the
+    build's trace for the ``trace`` phase."""
     import tempfile
 
     from sheep_tpu_torch.obs import trace
@@ -2528,6 +2793,8 @@ def resilient_real(device, data, hybrid_wall: float):
                 "real-size resilient build")
         trace.close_recorder()
         records, _, _ = trace.read_trace(path, "strict")
+        if keep_trace is not None:
+            shutil.copyfile(path, keep_trace)
     if not forest_equal(seq, forest, want_seq, want):
         raise AssertionError("real-size resilient build differs from the "
                              "oracle")
@@ -2878,7 +3145,7 @@ def mesh_nccl_cli(device: torch.device, workers: int = 2) -> dict:
 
 
 def mesh_phase(device: torch.device, real, small, widths=(2, 4, 8),
-               blocks: int = 4, cut: dict | None = None) -> dict:
+               blocks: int = 4, full: dict | None = None) -> dict:
     """The sharded mesh build (``parallel/``) on one card, its workers on
     the card through the ``mesh_devices`` seam, every run equal to the
     oracle bit for bit: on ``real`` ``build_graph_distributed`` at each
@@ -2887,8 +3154,8 @@ def mesh_phase(device: torch.device, real, small, widths=(2, 4, 8),
     resilient build from its mesh rung at W = 4 (checkpoints on, no
     fault); on ``small`` the single-dispatch twin (SHEEP_MESH_KERNEL=loop)
     and both mesh streaming builds in ``blocks`` blocks at W = 4; then
-    ``graph2tree -i -r`` joined at world size 1 over NCCL.  ``cut``: a
-    smaller input (and its oracle) for some widths, by width.  Prints one
+    ``graph2tree -i -r`` joined at world size 1 over NCCL.  ``full``: a
+    larger input (and its oracle) for some widths, by width.  Prints one
     ``mesh`` line."""
     from sheep_tpu_torch.core.sequence import sequence_positions
     from sheep_tpu_torch.ops.forest import merge_forests_device
@@ -2902,7 +3169,7 @@ def mesh_phase(device: torch.device, real, small, widths=(2, 4, 8),
     tail, head, want_seq, want = real
     runs = []
     for w in widths:
-        t, h, ws, wf = (cut or {}).get(w, real)
+        t, h, ws, wf = (full or {}).get(w, real)
         runs.append(mesh_run(
             "build_graph_distributed", w,
             lambda tm, comm, w=w, t=t, h=h: build_graph_distributed(
@@ -3014,20 +3281,31 @@ def main() -> int:
     streaming_phase(device, real_data, small_data)
     part_rec = partition_phase(device, real_data, small_data)
     gdir = tempfile.mkdtemp(prefix="sheep-real.")
+    keep = tempfile.mkdtemp(prefix="sheep-traces.")
     try:
-        cli_phase(device, real_data, part_rec, keep=gdir)
-        ext_phase(device, real_data, gdir)
-        supervise_phase(real_data, gdir)
-        distext_phase(device, dat=os.path.join(gdir, "E.dat"))
+        try:
+            cli_phase(device, real_data, part_rec, keep=gdir)
+            ext_phase(device, real_data, gdir)
+            supervise_phase(real_data, gdir)
+            distext_phase(device, dat=os.path.join(gdir, "E.dat"))
+            tools_phase(gdir, part_rec)
+            serve_rec = serve_phase(gdir, os.path.join(keep, "serve"))
+        finally:
+            shutil.rmtree(gdir, ignore_errors=True)
+        # the default tail's last run (the runs in between are other arms)
+        main_run = next(r for r in reversed(real) if r["arm"] == "stream")
+        build_trace = os.path.join(keep, "build.trace")
+        resilient_real(device, real_data, main_run["wall_s"],
+                       keep_trace=build_trace)
+        trace_phase(build_trace, serve_rec)
     finally:
-        shutil.rmtree(gdir, ignore_errors=True)
-    # the default tail's last run (the runs in between are other arms)
-    main_run = next(r for r in reversed(real) if r["arm"] == "stream")
-    resilient_real(device, real_data, main_run["wall_s"])
-    # the unified W = 8 run at 2^22 x 8 keeps the script within about 15
-    # minutes on the slowest card host seen (PERF.md §4)
-    mesh = mesh_phase(device, real_data, small_data,
-                      cut={8: real_inputs(22, 25, 0)})
+        shutil.rmtree(keep, ignore_errors=True)
+    # the mesh phase at 2^22 x 8 but for W = 2 at real size (where the
+    # finish's plateau assist is tracked) keeps the script inside its
+    # time limit on the slowest card host seen (PERF.md §4)
+    mesh_data = real_inputs(22, 25, 0)
+    mesh = mesh_phase(device, mesh_data, small_data, full={2: real_data})
+    del mesh_data
     del real_data
     device_phase(device, small_data)
     resilient_faults(device, small_data)

@@ -37,10 +37,17 @@ Layout:
               trace and the metrics registry
   cli/        the command-line tools (python -m sheep_tpu_torch.cli.<tool>:
               graph2tree, degree_sequence, make_graph, partition_tree,
-              merge_trees, fsck, plan, supervise, distext)
+              merge_trees, fsck, plan, supervise, distext, trace), and
+              cli/tools.py, the six analysis tools the util/ shims start
+              (tree2dot, tree2adj, graph2adj, vfennel, efennel,
+              read_partition)
   parallel/   the -i/-r build over a mesh of workers: the Mesh with its
               collectives over torch.distributed (NCCL on CUDA, gloo on
               the CPU), the sharded, chunked and streaming mesh builds
+  serve/      the single-node serve store: the group-committed WAL,
+              ServeCore (bootstrap, recovery, inserts, queries,
+              snapshots), the crash-safe re-sequence job, admission,
+              the wire grammar and client, the fault plans
   supervisor/ the chaos-hardened tournament supervisor: heartbeat,
               durable manifest, SHEEP_FAULT_PLAN chaos, the orchestrator
               whose runners start the port's own tools, --status
@@ -51,9 +58,9 @@ Layout:
   convert     numpy state <-> tensors on a device
 
 The host layers are copies of the reference's modules; their notes still
-name reference modules the port has not ported yet (serve/,
-supervisor/remote.py), whose queue is in ROADMAP.md §1 (``QUEUE`` below
-names each item).
+name reference modules the port has not ported yet (the serve daemon
+with replication, the remote build workers with supervisor/remote.py),
+whose queue is in ROADMAP.md §1 (``QUEUE`` below names each item).
 
 Only the routes that reach the card load torch: the package, ``ops``
 and ``runtime`` resolve their device modules lazily, so the serial,
@@ -75,8 +82,9 @@ INVALID_PART = -1
 #: reference modules not ported yet, by their ROADMAP.md §1 queue item;
 #: a route that needs one fails with a message naming its item
 QUEUE = {
-    "serve": "item 2 (serve/ with supervisor/remote.py)",
-    "remote": "item 2 (serve/ with supervisor/remote.py)",
+    "serve": "item 1 (serve, slice B: the daemon and replication)",
+    "remote": "item 2 (serve, slice C: the remote build workers, "
+              "supervisor/remote.py)",
 }
 
 

@@ -1868,6 +1868,80 @@ int sheep_native_omp(void) {
 #endif
 }
 
+// The serve store's incremental insert over a batch of links, in order
+// (serve/state.py insert_link, statement for statement): each link
+// lo -> hi climbs lo to its representative under threshold-hi
+// connectivity through the ancestor memo ``skip`` (jumping only through
+// entries < hi, compressing the visited path into the memo), attaches,
+// and cascades the displaced link upward.  The parent array and the memo
+// end exactly as the python loop leaves them.  Returns the number of
+// parent pointers rewritten, or -3 when an index is past the end.
+int64_t sheep_insert_links(uint32_t* parent, uint32_t* skip, int64_t n,
+                           const uint32_t* lo_in, const uint32_t* hi_in,
+                           int64_t k) {
+  std::vector<uint32_t> path;
+  int64_t rewrites = 0;
+  for (int64_t i = 0; i < k; ++i) {
+    uint32_t lo = lo_in[i], hi = hi_in[i];
+    while (true) {
+      if ((int64_t)lo >= n) return -3;
+      uint32_t r = lo;
+      path.clear();
+      bool done = false;
+      while (true) {
+        const uint32_t s = skip[r];
+        if (s != kInvalid && s < hi) {
+          if ((int64_t)s >= n) return -3;
+          r = s;
+          continue;
+        }
+        const uint32_t p = parent[r];
+        if (p == kInvalid || p > hi) break;
+        if (p == hi) {
+          if (r != lo) skip[lo] = r;
+          done = true;  // lo's component already hangs off hi
+          break;
+        }
+        if ((int64_t)p >= n) return -3;
+        path.push_back(r);
+        r = p;
+      }
+      if (done) break;
+      for (const uint32_t x : path) skip[x] = r;  // r is their ancestor
+      if (r != lo) skip[lo] = r;
+      if (r == hi) break;
+      const uint32_t p = parent[r];  // kInvalid or > hi: the displaced link
+      parent[r] = hi;
+      ++rewrites;
+      if (p == kInvalid) break;
+      lo = r;
+      hi = p;
+    }
+  }
+  return rewrites;
+}
+
+// Per-node subtree size and pst total of an elimination forest (the
+// serve store's subtree queries): size_out[k] = 1 and wsum_io[k] = pst[k]
+// on entry to the pass (wsum_io arrives holding pst), then, in index
+// order, each node adds its totals into its parent's.  A forest's parents
+// come later than their children, so one pass in index order completes
+// every total; the loop is the store's python pass, statement for
+// statement.  Returns 0, or -3 when a parent is past the end (nothing is
+// defined then).
+int sheep_subtree_aggregates(const uint32_t* parent, int64_t n,
+                             int64_t* size_out, int64_t* wsum_io) {
+  for (int64_t k = 0; k < n; ++k) size_out[k] = 1;
+  for (int64_t k = 0; k < n; ++k) {
+    const uint32_t p = parent[k];
+    if (p == kInvalid) continue;
+    if ((int64_t)p >= n) return -3;
+    size_out[p] += size_out[k];
+    wsum_io[p] += wsum_io[k];
+  }
+  return 0;
+}
+
 // The resolved SHEEP_NATIVE_THREADS (1 without OpenMP; clamped to
 // [1, 64]) — what an UNGATED kernel call would use.
 int sheep_native_threads(void) { return resolve_threads(); }

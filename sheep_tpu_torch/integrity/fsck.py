@@ -8,12 +8,14 @@ the format's structural invariants, then cheap semantic invariants.
 
 A state dir's distext ``manifest.json`` is checked as a chain: the
 manifest verifies, its shard map covers the graph's records, and every
-published ``.hist`` covers its leg's shard.
+published ``.hist`` covers its leg's shard.  A serve state dir's ``.wal``
+logs are checked against their sibling snapshots and logs (one build
+input, disjoint epochs), and its ``reseq.json`` as the re-sequence
+generation chain that must sanction the newest snapshot's generation.
 
 Artifacts of modules the port has not ported yet are found and reported
 as failures naming the ROADMAP.md queue item they wait for, never passed
-and never skipped: the serve daemon's ``.wal`` logs and ``.snap``
-snapshots and its reseq, scrub and quarantine chains (``serve/``).
+and never skipped: the serve daemon's scrub and quarantine chains.
 """
 
 from __future__ import annotations
@@ -33,15 +35,10 @@ from .errors import IntegrityError, MalformedArtifact
 from .sidecar import read_sidecar, resolve_policy, verify_file, write_sidecar
 
 #: suffixes fsck finds (``.npz`` = runtime snapshots, ``.trace`` = span
-#: logs, ``.hist`` = the distext legs' per-range degree histograms;
-#: ``.wal``/``.snap`` belong to the unported serving tier)
+#: logs, ``.hist`` = the distext legs' per-range degree histograms,
+#: ``.wal``/``.snap`` = the serve store's log and snapshots)
 ARTIFACT_SUFFIXES = (".tre", ".seq", ".dat", ".net", ".npz",
                      ".wal", ".snap", ".trace", ".hist")
-
-
-class UnportedArtifact(IntegrityError):
-    """An artifact whose checker needs a module the port has not ported:
-    a failure, so fsck never vouches for bytes it cannot check."""
 
 
 def _fsck_tre(path: str, mode: str) -> str:
@@ -74,6 +71,139 @@ def _fsck_npz(path: str, mode: str) -> str:
     snap = load_snapshot(path, integrity=mode)
     return (f"n={snap.n} links={len(snap.lo)} rounds={snap.rounds} "
             f"rung={snap.rung}")
+
+
+def _fsck_wal(path: str, mode: str) -> str:
+    """Verify the serve WAL chain: header magic/version/epoch,
+    per-record crc32, strictly monotone sequence numbers, and the
+    cross-artifact chain — the log and its sibling
+    snapshot must name the same build input, a log whose epoch differs
+    from the snapshot's must respect the promotion boundary (an
+    earlier-epoch log may never reach PAST the later epoch's sealed
+    seqno: that is a fenced ex-leader's divergent tail), and two sibling
+    logs of different epochs must cover disjoint seqno ranges.  Strict
+    refuses a torn tail; repair reports the salvageable prefix."""
+    from ..serve.wal import read_wal
+
+    sig, epoch, records, _, torn = read_wal(path, mode)
+    last = records[-1][0] if records else 0
+    first = records[0][0] if records else 0
+    detail = f"records={len(records)} last_seqno={last} epoch={epoch}"
+    if torn:
+        detail += " torn_tail=truncatable"
+    here = os.path.dirname(path) or "."
+    # chain check against the newest loadable sibling snapshot — by
+    # epoch first: a promotion crash window can leave the later term
+    # under a lower applied-seqno filename (serve/state.py open)
+    from ..serve.state import load_serve_snapshot, snap_paths
+    best = None
+    for snap_path in snap_paths(here):
+        try:
+            snap = load_serve_snapshot(snap_path, integrity="trust")
+        except (IntegrityError, OSError):
+            continue
+        if best is None or ((snap.epoch, snap.applied_seqno)
+                            > (best[1].epoch, best[1].applied_seqno)):
+            best = (snap_path, snap)
+    if best is not None:
+        snap_path, snap = best
+        if snap.sig != sig:
+            # a sig mismatch is corruption UNLESS the reseq manifest
+            # sanctions it: the crash window between the
+            # re-sequence seal and the WAL swap leaves the old-sig log
+            # beside the new-generation snapshot, and ServeCore.open
+            # heals exactly that — provided no log record lies past the
+            # snapshot boundary.  Records past it are the torn mid-swap
+            # state: refused strict, reported truncatable in repair.
+            from ..serve.reseq import sanctions_sig_change
+            if not sanctions_sig_change(here, sig, snap.sig):
+                raise MalformedArtifact(
+                    f"{path}: WAL signature {sig[:12]}... does not match "
+                    f"snapshot {os.path.basename(snap_path)} "
+                    f"({snap.sig[:12]}...) — log and snapshot are not one "
+                    f"recovery chain")
+            beyond = sum(1 for s, _ in records
+                         if s > snap.applied_seqno)
+            if beyond:
+                if mode != "repair":
+                    raise MalformedArtifact(
+                        f"{path}: torn mid-re-sequence swap — the "
+                        f"old-generation log holds {beyond} record(s) "
+                        f"past the re-sequenced snapshot boundary "
+                        f"{snap.applied_seqno} "
+                        f"({os.path.basename(snap_path)}); they were "
+                        f"applied to a tree that no longer exists and "
+                        f"can only be truncated (repair mode)")
+                detail += (f" reseq_heal=pending "
+                           f"torn_records={beyond} truncatable")
+            else:
+                detail += " reseq_heal=pending"
+        if epoch < snap.epoch and records and last > snap.applied_seqno:
+            raise MalformedArtifact(
+                f"{path}: cross-epoch seqno overlap — the epoch-{epoch} "
+                f"log reaches seqno {last}, past the epoch-{snap.epoch} "
+                f"snapshot boundary {snap.applied_seqno} "
+                f"({os.path.basename(snap_path)}); a fenced log may "
+                f"never extend a later epoch's history")
+        if epoch > snap.epoch:
+            raise MalformedArtifact(
+                f"{path}: WAL epoch {epoch} is ahead of every readable "
+                f"snapshot (newest is epoch {snap.epoch}, "
+                f"{os.path.basename(snap_path)}) — the promotion that "
+                f"sealed epoch {epoch} left no loadable snapshot; the "
+                f"chain cannot replay across that boundary")
+        detail += f" chain={os.path.basename(snap_path)}"
+    # sibling logs: different epochs must cover DISJOINT seqno ranges
+    # (the archived pre-promotion log vs the live one)
+    from ..serve.wal import archived_wal_paths, wal_path
+    siblings = set(archived_wal_paths(here))
+    live = wal_path(here)
+    if os.path.exists(live):
+        siblings.add(live)
+    siblings.discard(os.path.abspath(path))
+    siblings.discard(path)
+    for other in sorted(siblings):
+        try:
+            o_sig, o_epoch, o_records, _, _ = read_wal(other, "repair")
+        except (IntegrityError, OSError):
+            continue  # the sibling fails on its own fsck line
+        if o_sig != sig:
+            # sibling logs across a sanctioned re-sequence (an archived
+            # pre-reseq log beside the new-generation live one) are one
+            # history in two generations, not two histories
+            from ..serve.reseq import sanctions_sig_change
+            if not (sanctions_sig_change(here, o_sig, sig)
+                    or sanctions_sig_change(here, sig, o_sig)):
+                raise MalformedArtifact(
+                    f"{path}: sibling log {os.path.basename(other)} "
+                    f"names a different build input ({o_sig[:12]}... vs "
+                    f"{sig[:12]}...) — one state dir, two histories")
+        if o_epoch == epoch or not records or not o_records:
+            continue
+        o_first, o_last = o_records[0][0], o_records[-1][0]
+        lo_last, hi_first = ((last, o_first) if epoch < o_epoch
+                             else (o_last, first))
+        if hi_first <= lo_last:
+            raise MalformedArtifact(
+                f"{path}: cross-epoch seqno overlap with "
+                f"{os.path.basename(other)} — epoch {min(epoch, o_epoch)}"
+                f" ends at seqno {lo_last} but epoch "
+                f"{max(epoch, o_epoch)} starts at {hi_first}; epochs "
+                f"must hand off disjoint seqno ranges")
+    return detail
+
+
+def _fsck_snap(path: str, mode: str) -> str:
+    from ..serve.state import load_serve_snapshot
+
+    snap = load_serve_snapshot(path, integrity=mode)
+    links = int((snap.parent != INVALID_JNID).sum())
+    detail = (f"n={len(snap.seq)} links={links} "
+              f"applied={snap.applied_seqno} epoch={snap.epoch} "
+              f"inserted={len(snap.ins_tail)} parts={snap.num_parts}")
+    if snap.seq_gen:
+        detail += f" seq_gen={snap.seq_gen}"
+    return detail
 
 
 def _fsck_trace(path: str, mode: str) -> str:
@@ -165,21 +295,14 @@ def fsck_distext_manifest(state_dir: str,
             f"hists={checked}/{len(shards)} shard-map-ok")
 
 
-def _unported_checker(what: str, *keys: str):
-    def check(path: str, mode: str) -> str:
-        raise UnportedArtifact(f"{path}: checking {what} "
-                               f"{unported(*keys)}")
-    return check
-
-
 _CHECKERS = {
     ".tre": _fsck_tre,
     ".seq": _fsck_seq,
     ".dat": _fsck_dat,
     ".net": _fsck_net,
     ".npz": _fsck_npz,
-    ".wal": _unported_checker("a serve write-ahead log", "serve"),
-    ".snap": _unported_checker("a serve snapshot", "serve"),
+    ".wal": _fsck_wal,
+    ".snap": _fsck_snap,
     ".trace": _fsck_trace,
     ".hist": _fsck_hist,
 }
@@ -246,7 +369,6 @@ def repair_sidecar(path: str) -> str:
 #: state-dir chains of unported modules: (file or marker name, what it
 #: is, the queue items its check waits for)
 _UNPORTED_CHAINS = (
-    ("reseq.json", "the serve re-sequence generation chain", ("serve",)),
     ("scrub.json", "the serve scrub history chain", ("serve",)),
     ("quarantine.json", "the serve quarantine marker", ("serve",)),
 )
@@ -283,8 +405,10 @@ def fsck_paths(paths, mode: str | None = None):
     for root in paths:
         targets = collect_artifacts(root)
         chain = _manifest_chain_result(root, mode)
+        reseq_chain = _reseq_chain_result(root, mode)
         chains = _unported_chain_results(root)
-        if not targets and chain is None and not chains:
+        if not targets and chain is None and reseq_chain is None \
+                and not chains:
             results.append((root, False, "no artifacts found"))
             continue
         for path in targets:
@@ -295,9 +419,86 @@ def fsck_paths(paths, mode: str | None = None):
                 results.append((path, False, str(exc)))
         if chain is not None:
             results.append(chain)
+        if reseq_chain is not None:
+            results.append(reseq_chain)
         results.extend(chains)
     failures = [r for r in results if not r[1]]
     return results, failures
+
+
+def _reseq_chain_result(root: str, mode: str):
+    """The re-sequence generation-chain line for a serve state dir,
+    or None when the root is a file / never re-sequenced
+    AND its snapshots are all generation 0.
+
+    What it refuses: a snapshot claiming a sequence generation its
+    reseq manifest never sanctioned (silent tampering or a foreign
+    snapshot dropped into the dir), an unparseable manifest, and — in
+    strict mode — an in-flight manifest whose durable inputs are gone
+    (phase ``swap`` with neither a pending artifact nor fold
+    checkpoints, on a dir whose snapshot is still the OLD generation:
+    resumable only by a full refold, which repair-mode reports and
+    strict refuses to vouch for)."""
+    from ..serve import reseq as reseq_mod
+    from ..serve.state import load_serve_snapshot, snap_paths
+    if not os.path.isdir(root):
+        return None
+    mpath = reseq_mod.manifest_path(root)
+    has_manifest = os.path.exists(mpath)
+    # newest loadable snapshot's (gen, sig) is what the chain must vouch
+    best = None
+    for snap_path in snap_paths(root):
+        try:
+            snap = load_serve_snapshot(snap_path, integrity="trust")
+        except (IntegrityError, OSError):
+            continue
+        if best is None or ((snap.epoch, snap.applied_seqno)
+                            > (best[1].epoch, best[1].applied_seqno)):
+            best = (snap_path, snap)
+    if not has_manifest:
+        if best is not None and best[1].seq_gen:
+            return (mpath, False,
+                    f"{os.path.basename(best[0])} claims sequence "
+                    f"generation {best[1].seq_gen} but no reseq manifest "
+                    f"exists to sanction it — not one recovery chain")
+        return None
+    try:
+        man = reseq_mod.load_manifest(root)
+    except (IntegrityError, OSError) as exc:
+        return (mpath, False, str(exc))
+    phase = man.get("phase", "?")
+    chain = [(int(c.get("gen", -1)), c.get("sig", ""))
+             for c in man.get("chain", []) if isinstance(c, dict)]
+    detail = f"phase={phase} generations={len(chain)}"
+    if best is not None:
+        snap_path, snap = best
+        sanctioned = dict(chain)
+        if phase in ("swap", "adopt", "done"):
+            sanctioned.setdefault(int(man.get("new_gen", -1)),
+                                  man.get("new_sig", ""))
+        if sanctioned.get(snap.seq_gen) != snap.sig:
+            return (mpath, False,
+                    f"{os.path.basename(snap_path)} serves sequence "
+                    f"generation {snap.seq_gen} (sig "
+                    f"{snap.sig[:12]}...) which the reseq manifest "
+                    f"chain never sanctioned — torn or foreign swap")
+        detail += f" snap_gen={snap.seq_gen} chain-ok"
+    if phase not in reseq_mod.DONE_PHASES:
+        resumable = (os.path.exists(reseq_mod.pending_path(root))
+                     or os.path.isdir(reseq_mod.ckpt_dir(root)))
+        if phase == "swap" and not resumable \
+                and best is not None \
+                and best[1].seq_gen < int(man.get("new_gen", 0)):
+            if mode != "repair":
+                return (mpath, False,
+                        f"in-flight re-sequence at phase=swap lost its "
+                        f"pending artifact and checkpoints — resumable "
+                        f"only by a full refold (repair mode reports, "
+                        f"strict refuses)")
+            detail += " in_flight=refold-required"
+        else:
+            detail += " in_flight=resumable"
+    return (mpath, True, detail)
 
 
 def _manifest_chain_result(root: str, mode: str):

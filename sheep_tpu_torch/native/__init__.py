@@ -127,6 +127,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sheep_fennel_edges.argtypes = [
         _u32p, _u32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_double, _i64p]
+    lib.sheep_insert_links.restype = ctypes.c_int64
+    lib.sheep_insert_links.argtypes = [
+        _u32p, _u32p, ctypes.c_int64, _u32p, _u32p, ctypes.c_int64]
+    lib.sheep_subtree_aggregates.restype = ctypes.c_int
+    lib.sheep_subtree_aggregates.argtypes = [
+        _u32p, ctypes.c_int64, _i64p, _i64p]
     lib.sheep_eval_block.restype = ctypes.c_int64
     lib.sheep_eval_block.argtypes = [
         _u32p, _u32p, ctypes.c_int64, _i64p, ctypes.c_int64,
@@ -413,6 +419,47 @@ def degree_histogram_acc(tail: np.ndarray, head: np.ndarray,
         if _threads_live():
             _annotate_threads(sp)
     _histogram_rc(rc, len(deg), "sheep_degree_histogram_acc")
+
+
+def insert_links(parent: np.ndarray, skip: np.ndarray, lo: np.ndarray,
+                 hi: np.ndarray) -> int:
+    """Fold the links ``lo[i] -> hi[i]`` (lo < hi), in order, into the
+    live ``parent`` array through the ancestor memo ``skip``, both
+    uint32 [n] and updated in place (the serve store's ``insert_link``
+    loop, in one native call).  Returns the parent pointers rewritten; an
+    index past the end raises IndexError."""
+    for name, a in (("parent", parent), ("skip", skip)):
+        if a.dtype != np.uint32 or not a.flags["C_CONTIGUOUS"] \
+                or not a.flags["WRITEABLE"]:
+            raise TypeError(f"{name} must be a writeable C-contiguous "
+                            f"uint32 array (it is updated in place)")
+    if len(skip) != len(parent) or len(lo) != len(hi):
+        raise ValueError("insert_links: mismatched lengths")
+    lib = load_library()
+    rc = lib.sheep_insert_links(parent, skip, len(parent), _u32(lo),
+                                _u32(hi), len(lo))
+    if rc < 0:
+        raise IndexError("insert_links: an index is past the end of the "
+                         "forest")
+    return int(rc)
+
+
+def subtree_aggregates(parent: np.ndarray, pst: np.ndarray
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """(size, wsum) per node, int64: the node's subtree size and pst
+    total (the serve store's ``_subtree_aggregates_at`` pass, in one
+    native loop).  A parent past the end raises IndexError, as the
+    python pass does."""
+    lib = load_library()
+    parent = _u32(parent)
+    n = len(parent)
+    size = np.empty(n, dtype=np.int64)
+    wsum = np.array(pst, dtype=np.int64)
+    if len(wsum) != n:
+        raise ValueError("parent and pst differ in length")
+    if lib.sheep_subtree_aggregates(parent, n, size, wsum) != 0:
+        raise IndexError("a parent is past the end of the forest")
+    return size, wsum
 
 
 def jxn_build(tail: np.ndarray, head: np.ndarray, seq: np.ndarray,

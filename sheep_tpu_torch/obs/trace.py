@@ -1,6 +1,5 @@
 """Span tracing, the flight recorder's write side (port of
-sheep_tpu/obs/trace.py: the spans and events the fault-tolerant build
-records, and the reader the planner's prior store harvests from).
+sheep_tpu/obs/trace.py).
 
 ``SHEEP_TRACE=<path>`` turns every :func:`span`/:func:`event` call into
 one JSON line appended to ``<path>``; unset, both are near-free —
@@ -20,22 +19,26 @@ step mid-run cannot reorder the timeline); spans are written at EXIT (so
 ``dur`` is exact), which means a parent line follows its children —
 readers reconstruct the hierarchy from ``id``/``par``.  Every line is
 flushed as it lands, so a kill -9 mid-run leaves a readable prefix plus
-at most one torn trailing line: :func:`read_trace` refuses the tear
-strict, salvages the prefix in repair/trust, and refuses mid-file rot in
-every mode.  A CLEAN close seals a ``.sum`` sidecar
-(integrity/sidecar.py).
+at most one torn trailing line — the same contract as the WAL
+(serve/wal.py): :func:`read_trace` refuses the tear strict, salvages the
+prefix in repair/trust, and refuses mid-file rot in every mode.  A CLEAN
+close seals a ``.sum`` sidecar (integrity/sidecar.py) so ``sheep fsck``
+can vouch for a finished trace byte-for-byte.
 
 Thread-safety: span nesting is tracked per thread (threading.local), the
 file write is one lock-guarded append per line.  Processes do not share
 a recorder — a subprocess inheriting ``SHEEP_TRACE`` appends its own
 ``meta`` segment to the same file (append mode), which readers treat as
 a new segment.
+
+The shared overlap accounting lives here too (:func:`overlap_stats`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -88,6 +91,65 @@ def trace_segments(path: str) -> list[str]:
     return out
 
 
+# -- request-id propagation --------------------------------------
+#
+# A fleet request crosses processes (router -> leader -> follower fsync);
+# the rid is the join key that lets ``sheep trace --merge`` stitch their
+# trace files back into one timeline.  The rid rides a thread-local scope
+# so every span/event recorded inside it carries a top-level ``rid``
+# field — including spans the SAMPLER skipped around (the scope is set
+# whether or not the wrapping span recorded), and downstream spans the
+# request opens (WAL fsync, repartition kicks on the request thread).
+
+_rid_tl = threading.local()
+_RID_SEED = os.urandom(4).hex()
+_rid_counter = itertools.count(1)
+
+
+def new_rid() -> str:
+    """A compact process-unique request id: 8 random hex chars (the
+    process) + an 8-hex counter — cheaper than urandom per request and
+    unique across routers with overwhelming probability."""
+    return f"{_RID_SEED}{next(_rid_counter):08x}"
+
+
+def current_rid() -> str | None:
+    return getattr(_rid_tl, "rid", None)
+
+
+class _RidScope:
+    """Class-based (not generator-based) context manager: this sits on
+    the per-request hot path of router AND daemon, and the generator
+    protocol's ~1.5us/call was most of the wire-token overhead budget
+   ."""
+
+    __slots__ = ("rid", "prev")
+
+    def __init__(self, rid: str | None):
+        self.rid = rid
+
+    def __enter__(self) -> "_RidScope":
+        if self.rid:
+            self.prev = getattr(_rid_tl, "rid", None)
+            _rid_tl.rid = self.rid
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.rid:
+            _rid_tl.rid = self.prev
+        return False
+
+
+_NOOP_RID_SCOPE = _RidScope(None)
+
+
+def rid_scope(rid: str | None) -> "_RidScope":
+    """Attach ``rid`` to every span/event recorded by this thread inside
+    the scope (None = the shared no-op).  Nesting restores the outer rid
+    on exit."""
+    return _RidScope(rid) if rid else _NOOP_RID_SCOPE
+
+
 class _NoopSpan:
     """The disabled-mode span: one shared instance, no state, no work.
     Identity-stable so the zero-allocation fast path is testable
@@ -129,7 +191,7 @@ def _json_safe(v):
 class _Span:
     """One live span (enabled mode).  Created by TraceRecorder.span."""
 
-    __slots__ = ("rec", "name", "attrs", "id", "par", "t0")
+    __slots__ = ("rec", "name", "attrs", "id", "par", "t0", "rid")
 
     def __init__(self, rec: "TraceRecorder", name: str, attrs: dict):
         self.rec = rec
@@ -147,6 +209,7 @@ class _Span:
             stack = tl.stack = []
         self.par = stack[-1].id if stack else None
         self.id = rec._next_id()
+        self.rid = current_rid()
         stack.append(self)
         self.t0 = time.perf_counter()
         return self
@@ -296,6 +359,9 @@ class TraceRecorder:
                "tid": threading.get_ident() & 0xFFFF,
                "t": round(time.perf_counter() - self._t0, 6),
                "a": {k: _json_safe(v) for k, v in attrs.items()}}
+        rid = current_rid()
+        if rid is not None:
+            rec["rid"] = rid
         self._emit(rec)
 
     def _write_span(self, sp: _Span, t0: float, dur: float) -> None:
@@ -309,6 +375,8 @@ class TraceRecorder:
                "t": round(t0 - self._t0, 6),
                "dur": round(dur, 6),
                "a": {k: _json_safe(v) for k, v in sp.attrs.items()}}
+        if sp.rid is not None:
+            rec["rid"] = sp.rid
         self._emit(rec)
 
     def summary(self) -> dict:
@@ -408,6 +476,79 @@ def event(name: str, **attrs) -> None:
         rec.event(name, attrs)
 
 
+SAMPLE_ENV = "SHEEP_TRACE_SAMPLE"
+
+_sample_spec: str | None = None
+_sample_every = 1
+_sample_counters: dict[str, int] = {}
+_sample_lock = threading.Lock()
+#: calls between environ re-reads of the sample rate: the environ
+#: lookup is ~2us (bytes round-trip through os.environ) and the skip
+#: path runs once per REQUEST, so the rate is cached and re-read every
+#: this-many calls (an env flip lands within one window)
+_SAMPLE_RECHECK = 512
+_sample_countdown = 0
+
+
+def sample_every() -> int:
+    """The parsed ``SHEEP_TRACE_SAMPLE`` rate: ``1/N`` (or a bare
+    ``N``) means one span per N calls, 1 means every call (the
+    default).  Garbage never breaks the traced server: it warns once
+    and samples everything.  Calling this directly re-reads the env NOW
+    (tests do); the hot path re-reads every :data:`_SAMPLE_RECHECK`
+    calls."""
+    global _sample_spec, _sample_every, _sample_countdown
+    _sample_countdown = _SAMPLE_RECHECK
+    spec = os.environ.get(SAMPLE_ENV, "")
+    if spec != _sample_spec:
+        _sample_spec = spec
+        n = 1
+        if spec:
+            try:
+                num, _, den = spec.partition("/")
+                n = int(den) if den else int(num)
+                if den and int(num) != 1:
+                    raise ValueError
+                if n < 1:
+                    raise ValueError
+            except ValueError:
+                warnings.warn(f"{SAMPLE_ENV}={spec!r} is not 1/N or N; "
+                              f"sampling every span")
+                n = 1
+        _sample_every = n
+        with _sample_lock:
+            _sample_counters.clear()
+    return _sample_every
+
+
+def sampled_span(name: str, **attrs):
+    """:func:`span` under the ``SHEEP_TRACE_SAMPLE=1/N`` gate:
+    per-REQUEST spans on a loaded server would blow the <2% trace
+    overhead budget at tens of thousands of lines per second, so only
+    every Nth call of each span name records — enough that traces
+    exist under load, cheap enough to leave on.  Disabled tracing or a
+    skipped sample returns the shared no-op singleton; a recorded span
+    carries ``sample=N`` so readers can re-scale counts."""
+    rec = _current()
+    if rec is None:
+        return NOOP_SPAN
+    global _sample_countdown
+    _sample_countdown -= 1
+    if _sample_countdown <= 0:
+        sample_every()  # re-read the env once per window
+    n = _sample_every
+    if n > 1:
+        # deliberately lock-free: a racy lost increment only nudges the
+        # sampling cadence, and the skip path runs once per REQUEST on
+        # a loaded server — the lock was most of the <2% budget
+        c = _sample_counters.get(name, 0)
+        _sample_counters[name] = c + 1
+        if c % n:
+            return NOOP_SPAN
+        attrs["sample"] = n
+    return rec.span(name, attrs)
+
+
 @contextlib.contextmanager
 def timed(name: str, out: list | None = None, **attrs):
     """:func:`span` that ALWAYS measures: appends the phase's seconds to
@@ -422,6 +563,24 @@ def timed(name: str, out: list | None = None, **attrs):
         out.append(time.perf_counter() - t0)
 
 
+def annotate(**attrs) -> None:
+    """Merge attributes into the current thread's innermost open span
+    (no-op when tracing is disabled or no span is open)."""
+    rec = _current()
+    if rec is None:
+        return
+    stack = getattr(rec._tl, "stack", None)
+    if stack:
+        stack[-1].annotate(**attrs)
+
+
+def trace_summary() -> dict | None:
+    """The live recorder's in-memory rollup (None when disabled) — what
+    the bench records embed without re-reading the file."""
+    rec = _current()
+    return rec.summary() if rec is not None else None
+
+
 def close_recorder() -> None:
     """Flush + close + seal the active recorder (atexit does this on
     clean interpreter exit; kill -9 leaves the partial-trace contract)."""
@@ -431,6 +590,9 @@ def close_recorder() -> None:
         _recorder_path = None
     if old is not None:
         old.close()  # outside the lock, same reason as _current
+
+
+# -- shared overlap accounting ---------------------------------------------
 
 
 def overlap_stats(serialized_s: float, wall_s: float) -> dict:
@@ -512,10 +674,40 @@ def read_trace(path: str, mode: str | None = None):
     return records, tail_off, True
 
 
+def repair_trace(path: str) -> int:
+    """Truncate a torn trailing line off the file (mirrors
+    serve/wal.repair_wal).  Returns bytes removed (0 when clean).
+    Mid-file rot still raises — amputation never resurrects it."""
+    _, clean_end, torn = read_trace(path, "repair")
+    if not torn:
+        return 0
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(clean_end)
+        f.flush()
+        os.fsync(f.fileno())
+    return size - clean_end
+
+
+def read_trace_chain(path: str, mode: str | None = None) -> list[dict]:
+    """Read a rotated segment chain as ONE record stream: every rotated
+    segment strictly (their tails were sealed at rotation — a tear there
+    is damage, not a kill), then the active file under ``mode`` (where a
+    torn tail is the legal kill -9 shape)."""
+    records: list[dict] = []
+    chain = trace_segments(path)
+    if not chain:
+        raise OSError(f"no trace file or segments at {path}")
+    for p in chain:
+        seg_mode = "strict" if p != path else mode
+        recs, _, _ = read_trace(p, seg_mode)
+        records.extend(recs)
+    return records
+
+
 def rollup(records: list[dict]) -> dict:
     """Aggregate span records into the per-phase rollup:
-    {name: {count, total_s, max_s}} plus "_events" counts by name (what
-    ``supervise --status`` shows of a state dir's newest trace)."""
+    {name: {count, total_s, max_s}} plus "_events" counts by name."""
     phases: dict = {}
     events: dict[str, int] = {}
     for r in records:

@@ -489,3 +489,81 @@ def plan_transport(records: int, legs: int, remote_workers: int,
                    reason="shipping the slices does not beat the local "
                           "disk waves")
     return out
+
+
+#: pin the re-sequence decision: "go" | "stay" | "" (priced)
+RESEQ_PIN_ENV = "SHEEP_RESEQ_PIN"
+#: amortization horizon for the rebuild (seconds)
+RESEQ_HORIZON_ENV = "SHEEP_RESEQ_HORIZON_S"
+#: assumed carry-fold throughput of the streamed rebuild — deliberately
+#: coarse (same discipline as TRANSPORT_*): the decision only has to be
+#: right about the SHAPE (a rebuild is seconds, not hours), and
+#: SHEEP_RESEQ_PIN is the operator's word when it is not
+RESEQ_FOLD_BPS = 64 << 20
+
+
+def plan_reseq(records: int, inserted: int, seq_drift: int,
+               pin: str | None = None,
+               horizon_s: float | None = None,
+               priors=None) -> dict:
+    """Price a full re-sequence rebuild for the serve tier (serve/reseq.py): the detector already fired — is the streamed fold
+    over ``.dat + log`` worth running NOW?
+
+    The model: the rebuild streams ``(records + inserted) * 12`` bytes
+    off local disk and folds them (``bytes/DISK + bytes/FOLD``); the
+    counting-sort sequence pass and the partition sweep are noise beside
+    the fold.  GO when the rebuild amortizes inside ``horizon_s`` AND
+    there is real drift to recover (``seq_drift > 0``) — a drift-free
+    forced rebuild is the operator's call (``SHEEP_RESEQ_PIN=go`` or the
+    RESEQ verb's force), not the planner's.  The daemon's own detector
+    gates (SHEEP_RESEQ_DRIFT / _DRIFT_MIN) run BEFORE this pricing,
+    exactly like the rebalancer's hysteresis.
+
+    ``priors`` (a plan/priors.py PriorStore) replaces the analytic
+    RESEQ_FOLD_BPS guess with this host's MEASURED fold throughput —
+    harvested from past ``reseq.fold`` trace spans, the way plan_build
+    learns rung seconds.  The decision then carries provenance
+    ``learned``; when history thins (< MIN_CORRECT_SAMPLES at this
+    scale) the analytic constant is the fallback, same as everywhere."""
+    if pin is None:
+        pin = os.environ.get(RESEQ_PIN_ENV, "")
+    if horizon_s is None:
+        horizon_s = float(os.environ.get(RESEQ_HORIZON_ENV, "") or 60.0)
+    blob = (max(0, int(records)) + max(0, int(inserted))) * 12
+    out = {"blob_bytes": blob, "records": max(0, int(records)),
+           "inserted": max(0, int(inserted)),
+           "seq_drift": max(0, int(seq_drift)),
+           "cost_s": None, "reason": ""}
+    if pin in ("go", "stay"):
+        out.update(decision=pin, provenance=PROV_FORCED,
+                   reason=f"pinned by {RESEQ_PIN_ENV}")
+        return out
+    if pin:
+        raise ValueError(f"{RESEQ_PIN_ENV}={pin!r} must be "
+                         f"'go' or 'stay'")
+    from .priors import fold_bps as _fold_bps
+    prior = _fold_bps(priors, blob)
+    bps = prior["mean"] if prior else RESEQ_FOLD_BPS
+    cost_s = blob / TRANSPORT_DISK_BPS + blob / bps
+    out["cost_s"] = round(cost_s, 6)
+    out["fold_bps"] = int(bps)
+    priced_prov = PROV_LEARNED if prior else PROV_PRICED
+    learned = (f" (measured fold {bps / (1 << 20):.0f} MB/s over "
+               f"{prior['count']} run(s))" if prior else "")
+    if prior:
+        out["prior"] = prior
+        out["analytic_cost_s"] = round(
+            blob / TRANSPORT_DISK_BPS + blob / RESEQ_FOLD_BPS, 6)
+    if seq_drift <= 0:
+        out.update(decision="stay", provenance=PROV_DEFAULT,
+                   reason="no sequence drift to recover")
+        return out
+    if cost_s > horizon_s:
+        out.update(decision="stay", provenance=priced_prov,
+                   reason=f"rebuild ({cost_s:.1f}s) does not amortize "
+                          f"inside the {horizon_s:g}s horizon" + learned)
+        return out
+    out.update(decision="go", provenance=priced_prov,
+               reason=f"{seq_drift} drifted insert(s) recovered for a "
+                      f"{cost_s:.2f}s streamed rebuild" + learned)
+    return out

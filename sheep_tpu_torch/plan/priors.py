@@ -18,10 +18,10 @@ statistics learned from such traces; the planner (plan/model.py) reads
                          by link scale — the historical cost ``plan
                          --explain`` prints beside each candidate's
                          analytic price.
-  ``fold_bps:reseq``     measured bytes/s of a serving-tier re-sequence
-                         fold (``reseq.fold`` spans), harvested as the
-                         reference does for the pricing that comes with
-                         the serving tier.
+  ``fold_bps:reseq``     measured bytes/s of a serve-tier re-sequence
+                         fold (``reseq.fold`` spans, serve/reseq.py) —
+                         replaces the analytic RESEQ_FOLD_BPS guess in
+                         ``plan_reseq`` once this host has history.
 
 Keys carry a **host fingerprint** (cpu model + effective cores) and a
 **scale bucket** (log2 of n or links): a prior learned on an 8-core
@@ -242,6 +242,18 @@ def mem_ratio(priors: "PriorStore | None", rung: str, n: int) -> dict | None:
     if priors is None:
         return None
     p = priors.lookup("mem_ratio", rung, n)
+    if p is None or p["count"] < MIN_CORRECT_SAMPLES or p["mean"] <= 0:
+        return None
+    return p
+
+
+def fold_bps(priors: "PriorStore | None", blob: int) -> dict | None:
+    """The usable measured fold-throughput prior (bytes/s) for a
+    re-sequence of ``blob`` bytes on this host, or None (no store / too
+    few samples to correct)."""
+    if priors is None:
+        return None
+    p = priors.lookup("fold_bps", "reseq", blob)
     if p is None or p["count"] < MIN_CORRECT_SAMPLES or p["mean"] <= 0:
         return None
     return p

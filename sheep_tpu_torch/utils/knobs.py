@@ -247,6 +247,25 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
        "obs",
        "rotate the active trace to numbered .NNNN.trace segments past this "
        "size (0 = never)"),
+    _K("SHEEP_TRACE_SAMPLE", "str", "1",
+       "obs", "span sampling rate 1/N for per-request spans"),
+    # -- serve store -------------------------------------------------------
+    _K("SHEEP_SERVE_FAULT_PLAN", "plan", "",
+       "serve", "serve-layer fault plan kind@site:nth "
+       "(kill/hang/slow at req/query/insert/gc-append/gc-unsynced/"
+       "wal/apply and the reseq-hist/fold/swap/seal phase "
+       "boundaries)"),
+    _K("SHEEP_SERVE_NETFAULT_PLAN", "plan", "",
+       "replicate", "network fault plan drop/partition/slow/dup at "
+       "the replication sites (repl/hb), the worker-wire sites "
+       "(wleg/wbeat/wart), the migration sites (msnap/mdelta/mcut), "
+       "and the re-sequence swap announcement (reseq)"),
+    _K("SHEEP_RESEQ_PIN", "str", "",
+       "reseq", "pin the re-sequence pricing verdict: go / stay "
+       "(unset = plan_reseq prices the rebuild)"),
+    _K("SHEEP_RESEQ_HORIZON_S", "float", "60",
+       "reseq", "priced rebuild cost above this horizon stays (drift "
+       "keeps accruing until forced or cheaper)"),
     # -- dist --------------------------------------------------------------
     _K("SHEEP_COORDINATOR", "str", "",
        "dist",

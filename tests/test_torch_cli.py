@@ -517,7 +517,7 @@ def test_distext_routes_equal_reference(tmp_path, monkeypatch, case):
 UNPORTED = {
     "distext_ship": (["--distext", "-o", "t.tre"],
                      {"SHEEP_WORKER_ADDRS": "127.0.0.1:1",
-                      "SHEEP_WORKER_TRANSPORT": "ship"}, "serve"),
+                      "SHEEP_WORKER_TRANSPORT": "ship"}, "remote"),
 }
 
 

@@ -683,7 +683,7 @@ def test_subprocess_legs_are_the_ports_and_load_no_torch(
 def test_ship_transport_raises_naming_the_queue_item(tmp_path, monkeypatch,
                                                      dist_env):
     """Worker addresses with the transport pinned (or priced) to ship:
-    the job fails naming the serving tier's queue item before any leg is
+    the job fails naming the remote workers' queue item before any leg is
     dispatched; pinned local, it runs on this host."""
     from sheep_tpu_torch import QUEUE, unported
     path, *_ = graph_file(tmp_path)
@@ -695,8 +695,8 @@ def test_ship_transport_raises_naming_the_queue_item(tmp_path, monkeypatch,
     assert cfg.worker_addrs == [("127.0.0.1", 1), ("127.0.0.1", 2)]
     rec = distext("port", path, worker_addrs=cfg.worker_addrs)
     assert rec["raised"][0] == "SupervisionFailed"
-    assert rec["raised"][1].endswith(unported("serve"))
-    assert QUEUE["remote"] == QUEUE["serve"]
+    assert rec["raised"][1].endswith(unported("remote"))
+    assert QUEUE["remote"] != QUEUE["serve"]
     man = mod("port", "supervisor.manifest").load_manifest("st")
     assert all(leg.dispatches == 0 for leg in man.legs)
     monkeypatch.setenv("SHEEP_WORKER_TRANSPORT", "local")

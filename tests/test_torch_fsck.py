@@ -1,9 +1,11 @@
 """The port's fsck (integrity/fsck.py, cli/fsck.py) against the
 reference's: a clean trial directory, each artifact class fuzzed under
 each policy, a distext state dir (its ``.hist`` histograms and its
-manifest's shard-map chain) clean and fuzzed, ``--repair-sidecar``, and
-the artifacts of unported modules, which are reported as failures naming
-their ROADMAP.md queue item."""
+manifest's shard-map chain) clean and fuzzed, a serve state dir (its
+``.wal``, ``.snap`` and ``reseq.json`` chain) clean and fuzzed,
+``--repair-sidecar``, and the artifacts of unported modules (the serve
+daemon's scrub and quarantine chains), which are reported as failures
+naming their ROADMAP.md queue item."""
 
 import contextlib
 import io
@@ -129,10 +131,11 @@ def test_cli_equals_reference(tmp_path, argv):
         assert os.path.exists(tmp_path / "port" / "t.tre.sum")
 
 
+#: the serve daemon's chains (scrub history, quarantine), which wait for
+#: the daemon's queue item
 UNPORTED = {
-    "serve.wal": "serve", "snap-000000000001.snap": "serve",
-    "reseq.json": "serve", "scrub.json": "serve",
-    "quarantine.json": "serve", "old.tre.quarantined": "serve",
+    "scrub.json": "serve", "quarantine.json": "serve",
+    "old.tre.quarantined": "serve",
 }
 
 
@@ -150,9 +153,96 @@ def test_unported_artifact_is_a_failure(tmp_path, name):
     rc, out = _run_cli(port_cli, [d], d)
     assert rc == 1
     assert f"FAIL {os.path.join(d, name)}:" in out
-    rc, out = _run_cli(port_cli, ["-R", os.path.join(d, name)], d)
-    if name.endswith((".wal", ".snap")):
-        assert rc == 1 and "FAIL" in out  # never resealed
+    assert "item 1" in failures[0][2]  # the serve daemon
+
+
+#: a serve state dir's artifacts: the group-committed WAL, the snapshot
+#: the re-sequence sealed, and its generation chain
+SERVE = ("serve.wal", "snap-000000000001.snap", "reseq.json")
+
+
+def _dir_bytes(d: str) -> dict:
+    return {f: open(os.path.join(d, f), "rb").read()
+            for f in sorted(os.listdir(d))
+            if os.path.isfile(os.path.join(d, f))}
+
+
+def _serve_dir(root) -> str:
+    """A re-sequenced serve state dir with one insert past its newest
+    snapshot, made by the port's store."""
+    from sheep_tpu_torch.io import write_dat
+    from sheep_tpu_torch.serve import ServeCore, run_reseq
+    rng = np.random.default_rng(17)
+    tail = rng.integers(0, 120, 500).astype(np.uint32)
+    head = rng.integers(0, 120, 500).astype(np.uint32)
+    graph = os.path.join(str(root), "g.dat")
+    write_dat(graph, tail, head)
+    sd = os.path.join(str(root), "sd")
+    core = ServeCore.bootstrap(sd, graph_path=graph, num_parts=2)
+    core.insert(np.array([[130, 3]], np.uint32))
+    assert run_reseq(core, force=True)["seq_gen"] == 1
+    core.insert(np.array([[131, 4], [5, 6]], np.uint32))
+    core.close()
+    return sd
+
+
+def test_serve_dir_equals_reference(tmp_path):
+    """A real serve state dir, clean: every ``.wal``, ``.snap`` and
+    ``reseq.json`` line is the reference's, through the library and the
+    tool, and passes."""
+    sd = _serve_dir(tmp_path)
+    got = _results(port_fsck, [sd], None)
+    assert got == _results(ref_fsck, [sd], None)
+    assert got[1] == 0
+    checked = {os.path.basename(r[0]) for r in got[0]}
+    assert set(SERVE) <= checked
+    for argv in ([sd], ["-q", sd], [os.path.join(sd, "serve.wal")],
+                 ["-m", "repair", sd]):
+        assert _run_cli(port_cli, argv, sd) == _run_cli(ref_cli, argv, sd)
+    for name in ("serve.wal", "snap-000000000001.snap"):
+        assert _reseal(tmp_path, sd, name, "port") \
+            == _reseal(tmp_path, sd, name, "ref")
+
+
+def _reseal(root, sd, name, side):
+    """``fsck -R`` (write the missing sidecar) on one artifact of a copy
+    of ``sd`` made for this side alone: the exit code, the report with
+    the copy's path masked, and the copy's bytes after."""
+    d = os.path.join(str(root), f"R-{side}-{name}")
+    shutil.copytree(sd, d)
+    m = port_cli if side == "port" else ref_cli
+    rc, out = _run_cli(m, ["-R", os.path.join(d, name)], d)
+    return rc, out.replace(d, "<sd>"), _dir_bytes(d)
+
+
+@pytest.mark.parametrize("mode", ["strict", "repair", "trust"])
+@pytest.mark.parametrize("name", SERVE)
+def test_fuzzed_serve_artifact_equals_reference(tmp_path, name, mode):
+    """The serve store's artifacts (the cases that were unported until the
+    store was ported): one byte fuzzed in each, the port's lines (library
+    and tool) equal the reference's under every policy, strict fails, and
+    ``-R`` reports and writes as the reference does."""
+    sd = _serve_dir(tmp_path)
+    _fuzz(os.path.join(sd, name), "flip")
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = _results(port_fsck, [sd], mode)
+        want = _results(ref_fsck, [sd], mode)
+        cli = [_run_cli(m, ["-m", mode, sd], sd) for m in (port_cli,
+                                                          ref_cli)]
+    assert got == want
+    assert cli[0] == cli[1]
+    if mode == "strict":
+        assert got[1] >= 1, "strict fsck passed a fuzzed artifact"
+        assert cli[0][0] == 1
+        # -R on the fuzzed artifact: the same report and bytes after
+        reseal = [_reseal(tmp_path, sd, name, side)
+                  for side in ("port", "ref")]
+        assert reseal[0] == reseal[1]
+        if name.endswith((".wal", ".snap")):
+            # never resealed
+            assert reseal[0][0] == 1 and "FAIL" in reseal[0][1]
 
 
 #: a distext state dir's artifacts that only its modules can check

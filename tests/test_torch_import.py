@@ -46,7 +46,14 @@ NEW_MODULES = (
     "sheep_tpu_torch.supervisor.supervise",
     "sheep_tpu_torch.supervisor.status", "sheep_tpu_torch.ops.distext",
     "sheep_tpu_torch.cli.distext", "sheep_tpu_torch.cli.supervise",
-    "sheep_tpu_torch.obs.metrics")
+    "sheep_tpu_torch.obs.metrics",
+    # the analysis tools, the trace tool and the serve store
+    "sheep_tpu_torch.serve", "sheep_tpu_torch.serve.state",
+    "sheep_tpu_torch.serve.reseq", "sheep_tpu_torch.serve.wal",
+    "sheep_tpu_torch.serve.protocol", "sheep_tpu_torch.serve.admission",
+    "sheep_tpu_torch.serve.faults", "sheep_tpu_torch.serve.netfaults",
+    "sheep_tpu_torch.obs.merge", "sheep_tpu_torch.cli.tools",
+    "sheep_tpu_torch.cli.trace", "sheep_tpu_torch.scripts.serve_drive")
 
 #: modules a host route imports: none may load torch on import
 TORCH_FREE = (
@@ -66,7 +73,13 @@ TORCH_FREE = (
     "sheep_tpu_torch.supervisor.chaos", "sheep_tpu_torch.supervisor.supervise",
     "sheep_tpu_torch.supervisor.status", "sheep_tpu_torch.ops.distext",
     "sheep_tpu_torch.cli.distext", "sheep_tpu_torch.cli.supervise",
-    "sheep_tpu_torch.obs.metrics")
+    "sheep_tpu_torch.obs.metrics",
+    "sheep_tpu_torch.serve", "sheep_tpu_torch.serve.state",
+    "sheep_tpu_torch.serve.reseq", "sheep_tpu_torch.serve.wal",
+    "sheep_tpu_torch.serve.protocol", "sheep_tpu_torch.serve.admission",
+    "sheep_tpu_torch.serve.faults", "sheep_tpu_torch.serve.netfaults",
+    "sheep_tpu_torch.obs.merge", "sheep_tpu_torch.cli.tools",
+    "sheep_tpu_torch.cli.trace", "sheep_tpu_torch.scripts.serve_drive")
 
 
 def _modules():
@@ -152,7 +165,10 @@ def test_lazy_packages_resolve_every_name():
     # the CLI and what it stands on
     "sheep_tpu_torch/cli", "sheep_tpu_torch/parallel",
     "sheep_tpu_torch/supervisor", "sheep_tpu_torch/utils",
-    "sheep_tpu_torch/ops"])
+    "sheep_tpu_torch/ops",
+    # the serve store, the merge of traces, the tools and the trace tool
+    "sheep_tpu_torch/serve", "sheep_tpu_torch/obs/merge.py",
+    "sheep_tpu_torch/cli/tools.py", "sheep_tpu_torch/cli/trace.py"])
 def test_source_imports_no_jax_and_no_sheep_tpu(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -170,6 +186,35 @@ def test_source_imports_no_jax_and_no_sheep_tpu(path):
                 continue
             for name in names:
                 assert not _forbidden(name), f"{fn}: imports {name}"
+
+
+def test_serve_package_exports_only_ported_modules():
+    """The port's ``serve/__init__.py`` imports only the modules that are
+    ported (``state.py``'s ``from . import`` runs it): importing the
+    package loads no daemon, replication, cluster, tenants or router
+    module, and exports none of their names."""
+    prog = ("import sys\n"
+            "import sheep_tpu_torch.serve as s\n"
+            "import sheep_tpu_torch.serve.state, sheep_tpu_torch.serve.reseq\n"
+            "print(sorted(k.rsplit('.', 1)[1] for k in sys.modules\n"
+            "             if k.startswith('sheep_tpu_torch.serve.')))\n"
+            "print(sorted(n for n in ('ServeDaemon', 'ServeConfig', "
+            "'Router', 'ReplicationHub', 'TenantManager', 'ClusterConfig') "
+            "if hasattr(s, n)))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded, names = out.stdout.splitlines()
+    assert eval(loaded) == ["admission", "faults", "netfaults", "protocol",
+                            "reseq", "state", "wal"]
+    assert names == "[]"
+    files = sorted(f for f in os.listdir(os.path.join(PKG, "serve"))
+                   if f.endswith(".py"))
+    assert files == ["__init__.py", "admission.py", "faults.py",
+                     "netfaults.py", "protocol.py", "reseq.py", "state.py",
+                     "wal.py"]
 
 
 def test_source_names_no_reference_tool_to_run():
