@@ -128,6 +128,15 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    checkpoint lands, re-dispatched alone and resumed from the
    checkpoint; the tight-budget auto-route (``graph2tree.main`` in this
    process, no ``--distext``), each tree the same;
+9f'. the remote build workers (``remote`` line), host code in a child
+   process (``python -m sheep_tpu_torch.scripts.remote_drive run``, its
+   process tree sampled): two worker processes with state dirs of their
+   own, ``graph2tree --distext`` on 9f's file with its legs shipped to
+   them (SHEEP_WORKER_TRANSPORT=ship) equal to 9f's tree and the in-RAM
+   oracle, again with one artifact return torn (a netfault at the
+   ``wart`` site) re-dispatching exactly that leg, ``supervise
+   --status`` listing the remote legs; each worker's peak RSS beside the
+   budget, torch mapped into none;
 9g. the analysis tools (``tools`` line), host code: the six tools
    (``tree2dot``, ``tree2adj``, ``graph2adj``, ``vfennel``, ``efennel``,
    ``read_partition``), each a process started as the ``util/`` shims
@@ -149,6 +158,17 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    resumed, equal to it; ``ecv()`` equal to the evaluator; ``fsck`` of
    the state dirs passing and of a WAL with one byte flipped failing;
    bootstrap, insert, query, fsync, recovery and re-sequence figures;
+9h'. the serve daemon as a cluster (``daemon`` line), host code in a
+   child process (``python -m sheep_tpu_torch.scripts.daemon_drive
+   run``, its process tree sampled): 9h's recovered 2^23 store led by a
+   ``cli.serve`` process, two followers bootstrapped over the wire, 9h's
+   2^20 store a second tenant evicted and restored; 2^14 inserts in
+   batches of 64 from 4 clients beside follower reads, the leader killed
+   at its 128th insert, a follower elected, the killed node back as a
+   fenced follower; every acknowledged insert in the new leader's WAL,
+   three equal state crcs, ``supervise --status --json`` agreeing;
+   SCRUB, a CORRUPTed follower quarantined and healed; fsck of every
+   state dir; torch mapped into none;
 10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
     single -> host -> stream -> spill, checkpoints in a temporary
     directory) on the real-size graph: equal to the oracle, no degrade,
@@ -2137,7 +2157,8 @@ BUDGETED = ("hist", "distmap")
 
 def distext_phase(device: torch.device, log_n: int = 20,
                   records: int = 1 << 26, budget: str = DISTEXT_BUDGET,
-                  legs: int = DISTEXT_LEGS, dat: str | None = None) -> dict:
+                  legs: int = DISTEXT_LEGS, dat: str | None = None,
+                  keep: str | None = None) -> dict:
     """The distributed out-of-core build (``distext`` line), host code
     that loads no torch, at the reference's published deployment shape
     (a file 4x the per-leg budget over ``legs`` legs; DISTEXT_BUDGET):
@@ -2167,7 +2188,9 @@ def distext_phase(device: torch.device, log_n: int = 20,
        job goes to legs of their own, and the tree is the same.
 
     ``dat``: that file already written (the ext phase's EXTBENCH file,
-    the same bytes ``write_extbench(log_n, records)`` writes)."""
+    the same bytes ``write_extbench(log_n, records)`` writes).  ``keep``:
+    a directory that gets copies of the distext and in-RAM trees
+    (``D.tre``, ``D_ram.tre``) for the remote phase."""
     import signal
 
     from sheep_tpu_torch.cli import graph2tree
@@ -2346,6 +2369,9 @@ def distext_phase(device: torch.device, log_n: int = 20,
             {r["kind"] for r in auto_legs} == set(BUDGETED) and bool(merges))
         checks["auto_route_tree_identical"] = same_files(t("A.tre"),
                                                          t("D.tre"))
+        if keep is not None:
+            for name in ("D.tre", "D_ram.tre"):
+                shutil.copyfile(t(name), os.path.join(keep, name))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec["checks"] = checks
@@ -2596,6 +2622,93 @@ def serve_phase(gdir: str, work: str, **sizes) -> dict:
     log("serve " + json.dumps(rec))
     if rec["torch_mapped"] or not all(rec["checks"].values()):
         raise AssertionError(f"serve: checks failed: {rec['checks']}, "
+                             f"torch mapped: {rec['torch_mapped']}")
+    return rec
+
+
+def _proc_rows(sampler, tag: str) -> list:
+    """Each sampled process whose command line names ``tag``: its pid,
+    ``--node-id`` (or the command's last word), seconds alive and peak
+    RSS."""
+    rows = []
+    for r in sorted(sampler.procs.values(), key=lambda r: r["first_s"]):
+        if tag not in r["cmd"]:
+            continue
+        words = r["cmd"].split()
+        name = words[words.index("--node-id") + 1] \
+            if "--node-id" in words else os.path.basename(words[-1])
+        rows.append({"name": name, "pid": r["pid"],
+                     "alive_s": r["last_s"] - r["first_s"],
+                     "peak_rss_bytes": r["peak_rss_bytes"],
+                     "torch_mapped": r["torch_mapped"]})
+    return rows
+
+
+def daemon_phase(serve_work: str, **sizes) -> dict:
+    """The serve daemon as a replicated cluster at real size (``daemon``
+    line): ``python -m sheep_tpu_torch.scripts.daemon_drive run`` in a
+    child process that never loads torch, its process tree sampled, on
+    the serve phase's recovered 2^23 store (``serve_work/sd``, whose
+    snapshot names G.dat, so it runs while the graph dir is kept) with
+    its 2^20 store (``serve_work/sd_cut``) as the second tenant.  Each
+    node's peak RSS comes from the sampler."""
+    argv = [sys.executable, "-m", "sheep_tpu_torch.scripts.daemon_drive",
+            "run", os.path.join(serve_work, "cluster"),
+            "--state", os.path.join(serve_work, "sd"),
+            "--tenant-dir", os.path.join(serve_work, "sd_cut"),
+            "--tenant-log-n", str(SERVE_RESEQ_LOG_N)]
+    for k, v in sizes.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    rc, out, err, wall, sampler = run_cmd_sampled(argv, timeout=900)
+    found = [ln for ln in out.splitlines() if ln.startswith("daemon_record ")]
+    if rc != 0 or not found:
+        raise AssertionError(f"daemon: the drive exited {rc}:\n{out[-4000:]}"
+                             f"\n{err[-6000:]}")
+    rec = json.loads(found[-1].split(" ", 1)[1])
+    rec["wall_s"] = wall
+    rec["nodes"] = _proc_rows(sampler, "sheep_tpu_torch.cli.serve")
+    rec["driver_peak_rss_bytes"] = sampler.root_record()["peak_rss_bytes"]
+    rec["torch_mapped"] = sampler.torch_mapped()
+    rec["processes"] = len(sampler.procs)
+    log("daemon " + json.dumps(rec))
+    if rec["torch_mapped"] or not all(rec["checks"].values()):
+        raise AssertionError(f"daemon: checks failed: {rec['checks']}, "
+                             f"torch mapped: {rec['torch_mapped']}")
+    return rec
+
+
+def remote_phase(gdir: str, distext_rec: dict) -> dict:
+    """The remote build workers at real size (``remote`` line):
+    ``python -m sheep_tpu_torch.scripts.remote_drive run`` in a child
+    process, its process tree sampled, on the distext phase's file (the
+    ext phase's EXTBENCH E.dat, 2^26 records over 2^20 vertices) at its
+    budget and leg count, its tree held to the distext phase's tree and
+    in-RAM oracle (``D.tre``, ``D_ram.tre`` kept in ``gdir``)."""
+    tmp = tempfile.mkdtemp(prefix="sheep-remote.")
+    try:
+        argv = [sys.executable, "-m", "sheep_tpu_torch.scripts.remote_drive",
+                "run", os.path.join(tmp, "work"),
+                "--graph", os.path.join(gdir, "E.dat"),
+                "--want", os.path.join(gdir, "D.tre"),
+                "--oracle", os.path.join(gdir, "D_ram.tre"),
+                "--budget", DISTEXT_BUDGET, "--legs", str(DISTEXT_LEGS)]
+        rc, out, err, wall, sampler = run_cmd_sampled(argv, timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    found = [ln for ln in out.splitlines() if ln.startswith("remote_record ")]
+    if rc != 0 or not found:
+        raise AssertionError(f"remote: the drive exited {rc}:\n{out[-4000:]}"
+                             f"\n{err[-6000:]}")
+    rec = json.loads(found[-1].split(" ", 1)[1])
+    rec["wall_s"] = wall
+    rec["local_distext_wall_s"] = distext_rec["distext"]["wall_s"]
+    rec["workers"] = _proc_rows(sampler, "sheep_tpu_torch.cli.worker")
+    rec["budget_bytes"] = distext_rec["budget_bytes"]
+    rec["supervisors"] = _proc_rows(sampler, "cli.graph2tree")
+    rec["torch_mapped"] = sampler.torch_mapped()
+    log("remote " + json.dumps(rec))
+    if rec["torch_mapped"] or not all(rec["checks"].values()):
+        raise AssertionError(f"remote: checks failed: {rec['checks']}, "
                              f"torch mapped: {rec['torch_mapped']}")
     return rec
 
@@ -3287,9 +3400,12 @@ def main() -> int:
             cli_phase(device, real_data, part_rec, keep=gdir)
             ext_phase(device, real_data, gdir)
             supervise_phase(real_data, gdir)
-            distext_phase(device, dat=os.path.join(gdir, "E.dat"))
+            dist_rec = distext_phase(device, dat=os.path.join(gdir, "E.dat"),
+                                     keep=gdir)
+            remote_phase(gdir, dist_rec)
             tools_phase(gdir, part_rec)
             serve_rec = serve_phase(gdir, os.path.join(keep, "serve"))
+            daemon_phase(os.path.join(keep, "serve"))
         finally:
             shutil.rmtree(gdir, ignore_errors=True)
         # the default tail's last run (the runs in between are other arms)

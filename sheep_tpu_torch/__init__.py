@@ -37,20 +37,24 @@ Layout:
               trace and the metrics registry
   cli/        the command-line tools (python -m sheep_tpu_torch.cli.<tool>:
               graph2tree, degree_sequence, make_graph, partition_tree,
-              merge_trees, fsck, plan, supervise, distext, trace), and
+              merge_trees, fsck, plan, supervise, distext, trace, serve,
+              worker), and
               cli/tools.py, the six analysis tools the util/ shims start
               (tree2dot, tree2adj, graph2adj, vfennel, efennel,
               read_partition)
   parallel/   the -i/-r build over a mesh of workers: the Mesh with its
               collectives over torch.distributed (NCCL on CUDA, gloo on
               the CPU), the sharded, chunked and streaming mesh builds
-  serve/      the single-node serve store: the group-committed WAL,
-              ServeCore (bootstrap, recovery, inserts, queries,
-              snapshots), the crash-safe re-sequence job, admission,
-              the wire grammar and client, the fault plans
+  serve/      the serve tier: the group-committed WAL, ServeCore
+              (bootstrap, recovery, inserts, queries, snapshots), the
+              crash-safe re-sequence job, admission, the wire grammar
+              and client, the fault plans; the daemon with WAL
+              replication, epoch-fenced failover, anti-entropy scrub
+              and tenants; the remote build workers
   supervisor/ the chaos-hardened tournament supervisor: heartbeat,
               durable manifest, SHEEP_FAULT_PLAN chaos, the orchestrator
-              whose runners start the port's own tools, --status
+              whose runners start the port's own tools or ship distext
+              legs to remote workers, --status
   scripts/    tools: the backend probe (python -m
               sheep_tpu_torch.scripts.kernel_probe)
   utils/      synthetic R-MAT graphs, the environment capture, the
@@ -58,9 +62,9 @@ Layout:
   convert     numpy state <-> tensors on a device
 
 The host layers are copies of the reference's modules; their notes still
-name reference modules the port has not ported yet (the serve daemon
-with replication, the remote build workers with supervisor/remote.py),
-whose queue is in ROADMAP.md §1 (``QUEUE`` below names each item).
+name reference modules the port has not ported yet (the routed fleet:
+serve/router.py, migrate.py, rebalance.py, cli/route.py, cli/top.py),
+whose queue is in ROADMAP.md §1 (``QUEUE`` below names the item).
 
 Only the routes that reach the card load torch: the package, ``ops``
 and ``runtime`` resolve their device modules lazily, so the serial,
@@ -81,18 +85,28 @@ INVALID_PART = -1
 
 #: reference modules not ported yet, by their ROADMAP.md §1 queue item;
 #: a route that needs one fails with a message naming its item
+FLEET = "item 1 (serve, slice D: the routed fleet)"
 QUEUE = {
-    "serve": "item 1 (serve, slice B: the daemon and replication)",
-    "remote": "item 2 (serve, slice C: the remote build workers, "
-              "supervisor/remote.py)",
+    "router": FLEET,
+    "migrate": FLEET,
+    "rebalance": FLEET,
+    "route": FLEET,
+    "top": FLEET,
 }
 
 
 def unported(*keys: str) -> str:
     """The tail of the message a route that needs the ``QUEUE`` items
     ``keys`` raises."""
+    items = list(dict.fromkeys(QUEUE[k] for k in keys))
     return (f"is not ported to sheep_tpu_torch yet: it waits for "
-            f"ROADMAP.md §1 {' and '.join(QUEUE[k] for k in keys)}")
+            f"ROADMAP.md §1 {' and '.join(items)}")
+
+
+def unported_ascii(*keys: str) -> str:
+    """:func:`unported` in ASCII, for the serve wire (one non-ASCII byte
+    in a response line costs the client its connection)."""
+    return unported(*keys).replace("§", "section ")
 
 
 def resolve_device(device=None):

@@ -6,8 +6,9 @@
                verified on read under a strict/repair/trust policy (env
                ``SHEEP_INTEGRITY``)
   fsck.py      verify any artifact or trial directory (``cli/fsck.py``),
-               a distext state dir's shard-map chain included; artifacts
-               of the unported serving tier are reported as failures
+               a distext state dir's shard-map chain and a serve state
+               dir's WAL, re-sequence, scrub and quarantine chains
+               included
 
 The fast forest oracle is ``core.validate.check_forest_fast``.
 """

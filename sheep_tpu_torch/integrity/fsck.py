@@ -10,12 +10,10 @@ A state dir's distext ``manifest.json`` is checked as a chain: the
 manifest verifies, its shard map covers the graph's records, and every
 published ``.hist`` covers its leg's shard.  A serve state dir's ``.wal``
 logs are checked against their sibling snapshots and logs (one build
-input, disjoint epochs), and its ``reseq.json`` as the re-sequence
-generation chain that must sanction the newest snapshot's generation.
-
-Artifacts of modules the port has not ported yet are found and reported
-as failures naming the ROADMAP.md queue item they wait for, never passed
-and never skipped: the serve daemon's scrub and quarantine chains.
+input, disjoint epochs), its ``reseq.json`` as the re-sequence
+generation chain that must sanction the newest snapshot's generation,
+its ``scrub.json`` as the hash-chained scrub history, and its quarantine
+marker and ``*.quarantined`` artifacts are reported, never loaded.
 """
 
 from __future__ import annotations
@@ -25,7 +23,7 @@ import warnings
 
 import numpy as np
 
-from .. import INVALID_JNID, unported
+from .. import INVALID_JNID
 from ..io.edges import read_dat, read_net
 from ..io.seqfile import read_sequence
 from ..io.trefile import read_tree
@@ -366,34 +364,6 @@ def repair_sidecar(path: str) -> str:
     return detail
 
 
-#: state-dir chains of unported modules: (file or marker name, what it
-#: is, the queue items its check waits for)
-_UNPORTED_CHAINS = (
-    ("scrub.json", "the serve scrub history chain", ("serve",)),
-    ("quarantine.json", "the serve quarantine marker", ("serve",)),
-)
-_QUAR_SUFFIX = ".quarantined"
-
-
-def _unported_chain_results(root: str) -> list:
-    """A failure line for each chain of an unported module found in a
-    state dir, and for each quarantined artifact under it."""
-    if not os.path.isdir(root):
-        return []
-    out = []
-    for name, what, keys in _UNPORTED_CHAINS:
-        path = os.path.join(root, name)
-        if os.path.exists(path):
-            out.append((path, False, f"checking {what} {unported(*keys)}"))
-    for dirpath, _, names in os.walk(root):
-        for name in sorted(names):
-            if name.endswith(_QUAR_SUFFIX):
-                out.append((os.path.join(dirpath, name), False,
-                            f"checking an artifact the serve scrubber "
-                            f"quarantined {unported('serve')}"))
-    return out
-
-
 def fsck_paths(paths, mode: str | None = None):
     """Verify every artifact reachable from ``paths``.
 
@@ -406,9 +376,10 @@ def fsck_paths(paths, mode: str | None = None):
         targets = collect_artifacts(root)
         chain = _manifest_chain_result(root, mode)
         reseq_chain = _reseq_chain_result(root, mode)
-        chains = _unported_chain_results(root)
+        scrub_chain = _scrub_chain_result(root, mode)
+        quarantined = _quarantined_results(root, mode)
         if not targets and chain is None and reseq_chain is None \
-                and not chains:
+                and scrub_chain is None and not quarantined:
             results.append((root, False, "no artifacts found"))
             continue
         for path in targets:
@@ -421,9 +392,64 @@ def fsck_paths(paths, mode: str | None = None):
             results.append(chain)
         if reseq_chain is not None:
             results.append(reseq_chain)
-        results.extend(chains)
+        if scrub_chain is not None:
+            results.append(scrub_chain)
+        results.extend(quarantined)
     failures = [r for r in results if not r[1]]
     return results, failures
+
+
+def _scrub_chain_result(root: str, mode: str):
+    """The anti-entropy scrub-history line for a state dir,
+    or None when the root is a file / was never scrubbed.  The scrub
+    manifest is hash-chained (serve/scrub.py), so an edited or dropped
+    run record is a failure, not a shrug."""
+    from ..serve import scrub as scrub_mod
+    if not os.path.isdir(root):
+        return None
+    mpath = scrub_mod.scrub_manifest_path(root)
+    if not os.path.exists(mpath):
+        return None
+    try:
+        return (mpath, True, scrub_mod.verify_scrub_chain(root))
+    except (IntegrityError, OSError) as exc:
+        return (mpath, False, str(exc))
+
+
+def _quarantined_results(root: str, mode: str):
+    """The quarantine convention: ``*.quarantined`` artifacts
+    are REPORTED, never loaded, and never counted as failures — the
+    scrubber already did the failing; the rename IS the containment.
+    Repair mode re-verifies each one and reclaims (renames back) those
+    whose bytes now check out — the transient-rot case; anything still
+    corrupt stays quarantined.  A dir-level quarantine marker
+    (divergence, not rot) is reported the same way."""
+    from ..serve import scrub as scrub_mod
+    out = []
+    if not os.path.isdir(root):
+        return out
+    marker = scrub_mod.read_quarantine(root) \
+        if os.path.exists(scrub_mod.quarantine_path(root)) else None
+    if marker is not None:
+        out.append((scrub_mod.quarantine_path(root), True,
+                    f"dir quarantined: phase={marker.get('phase', '?')} "
+                    f"reason={marker.get('reason', '?')} — reads "
+                    f"refused until the re-sync clears it"))
+    for qpath in scrub_mod.quarantined_paths(root):
+        if mode == "repair":
+            try:
+                detail = scrub_mod.reclaim_quarantined(qpath)
+                out.append((qpath, True, f"reclaimed: {detail}"))
+                continue
+            except (IntegrityError, OSError) as exc:
+                out.append((qpath, True,
+                            f"quarantined, still corrupt — kept "
+                            f"({exc})"))
+                continue
+        out.append((qpath, True,
+                    "quarantined by the scrubber; never loaded "
+                    "(repair mode re-verifies and reclaims)"))
+    return out
 
 
 def _reseq_chain_result(root: str, mode: str):

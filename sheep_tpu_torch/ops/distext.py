@@ -38,10 +38,9 @@ boundaries resolve inside a leg (the ext retry/checkpoint story), and at
 leg boundaries (dispatch, publish, histogram merge, tournament rounds) by
 retry/speculation/fsck with only dirty legs re-dispatched.
 
-Legs run on the local host only: a transport priced (or pinned) to ship
-legs to remote workers needs the serving tier's wire, which is not
-ported, and :func:`run_distext` raises naming its queue item before any
-leg is dispatched.
+A transport priced (or pinned) to ``ship`` sends the legs to remote
+worker daemons (``SHEEP_WORKER_ADDRS``, supervisor/remote.py) over the
+serve tier's wire; ``local`` keeps them on this host.
 
 Torch-free like ops/extmem (the supervisor parent must stay lean; each
 leg's whole acceptance is peak RSS inside its budget).
@@ -215,7 +214,6 @@ def run_distext(graph: str, state_dir: str, config=None, runner=None,
     checkpoint folds its record slice into its input_sig, so a foreign
     shard map could never publish anyway; the refusal is just earlier
     and clearer)."""
-    from .. import unported
     from ..obs import trace as obs
     from ..resources import gc_orphan_temps
     from .. import supervisor as sup
@@ -302,13 +300,13 @@ def run_distext(graph: str, state_dir: str, config=None, runner=None,
         transport = plan_transport(records, len(manifest.shards),
                                    len(worker_addrs))
     if worker_addrs and transport["transport"] == "ship":
-        # the reference wraps the runner in its RemoteRunner here, which
-        # ships each leg over the serving tier's wire
-        raise SupervisionFailed(
-            f"shipping distext legs to {len(worker_addrs)} remote "
-            f"worker(s) (SHEEP_WORKER_ADDRS, transport "
-            f"{transport['provenance']}: {transport['reason']}) "
-            f"{unported('remote')}")
+        from ..supervisor.remote import RemoteRunner
+        if runner is None:
+            runner = sup.SubprocessRunner()
+        if not getattr(runner, "remote", False):
+            runner = RemoteRunner(
+                worker_addrs, base=runner,
+                beat_s=getattr(config, "worker_beat_s", 1.0))
     manifest = TournamentSupervisor(manifest, state_dir, config,
                                     runner).run()
     if out_file and out_file != manifest.final_tree:

@@ -567,3 +567,55 @@ def plan_reseq(records: int, inserted: int, seq_drift: int,
                reason=f"{seq_drift} drifted insert(s) recovered for a "
                       f"{cost_s:.2f}s streamed rebuild" + learned)
     return out
+
+
+# -- the anti-entropy scrub job (serve/scrub.py) ------------------
+
+SCRUB_PIN_ENV = "SHEEP_SCRUB_PIN"
+#: the budget one background scrub pass may spend re-reading sealed bytes
+SCRUB_HORIZON_ENV = "SHEEP_SCRUB_HORIZON_S"
+#: crc32c re-verification throughput (memory-bound streaming checksum;
+#: conservative so pricing declines before the disk does)
+SCRUB_SUM_BPS = 512 << 20
+
+
+def plan_scrub(artifacts: int, bytes_total: int,
+               pin: str | None = None,
+               horizon_s: float | None = None) -> dict:
+    """Price one background scrub pass: re-reading every
+    sealed artifact costs ``bytes/DISK + bytes/SUM`` — GO when that fits
+    inside ``horizon_s`` (default 30s), else STAY and let the operator
+    raise the horizon, tighten the interval, or pin.  The daemon's
+    interval knob (SHEEP_SCRUB_INTERVAL_S) gates WHEN pricing runs,
+    exactly like the reseq detector gates plan_reseq; an inline ``SCRUB``
+    verb is the operator's force and skips pricing entirely."""
+    if pin is None:
+        pin = os.environ.get(SCRUB_PIN_ENV, "")
+    if horizon_s is None:
+        horizon_s = float(os.environ.get(SCRUB_HORIZON_ENV, "") or 30.0)
+    blob = max(0, int(bytes_total))
+    out = {"artifacts": max(0, int(artifacts)), "blob_bytes": blob,
+           "cost_s": None, "reason": ""}
+    if pin in ("go", "stay"):
+        out.update(decision=pin, provenance=PROV_FORCED,
+                   reason=f"pinned by {SCRUB_PIN_ENV}")
+        return out
+    if pin:
+        raise ValueError(f"{SCRUB_PIN_ENV}={pin!r} must be "
+                         f"'go' or 'stay'")
+    if not artifacts:
+        out.update(decision="stay", provenance=PROV_DEFAULT,
+                   reason="nothing sealed to re-verify")
+        return out
+    cost_s = blob / TRANSPORT_DISK_BPS + blob / SCRUB_SUM_BPS
+    out["cost_s"] = round(cost_s, 6)
+    if cost_s > horizon_s:
+        out.update(decision="stay", provenance=PROV_PRICED,
+                   reason=f"re-verifying {blob >> 20} MiB "
+                          f"({cost_s:.1f}s) exceeds the {horizon_s:g}s "
+                          f"scrub horizon")
+        return out
+    out.update(decision="go", provenance=PROV_PRICED,
+               reason=f"{artifacts} sealed artifact(s), "
+                      f"{cost_s:.2f}s to re-verify")
+    return out

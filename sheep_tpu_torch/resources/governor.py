@@ -253,6 +253,18 @@ EXT_RECORD_BYTES = 64
 EXT_PREFETCH = 2
 
 
+def serve_tenant_nbytes(n: int, vids: int, inserted: int) -> int:
+    """Priced resident bytes of one serve tenant's core (serve/state.py,
+    serve/tenants.py): the tree arrays seq+parent+pst are uint32 [n]
+    (12n), the vid-indexed partition is int64 + the uint32 position
+    table (12/vid), inserted edges are kept as two Python int lists
+    (~2x28 bytes each as CPython ints + list slots), plus the subtree
+    cache the first SUBTREE query materializes (16n int64).  Prices the
+    eviction policy, not a bill — over-pricing evicts earlier, which is
+    the safe direction (module docstring)."""
+    return 28 * n + 12 * vids + 64 * inserted + (1 << 16)
+
+
 def ext_block_edges() -> int:
     """The ext rung's block size in EDGE RECORDS (``SHEEP_EXT_BLOCK``
     overrides; accepts a bare count or a human size like ``2M`` = 2^21

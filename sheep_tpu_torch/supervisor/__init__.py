@@ -1,7 +1,7 @@
 """Chaos-hardened tournament supervisor for the distributed file path
-(port of sheep_tpu/supervisor, less its remote dispatch arm).
+(port of sheep_tpu/supervisor).
 
-Five modules, layered bottom-up:
+Six modules, layered bottom-up:
 
   heartbeat.py  worker liveness: heartbeat files + deadlines (mtime-based,
                 so shell and Python workers implement one protocol); a
@@ -20,9 +20,11 @@ Five modules, layered bottom-up:
   status.py     ``supervise --status``: the manifest + heartbeat +
                 budget-headroom operator report (read-only)
 
-The reference's ``remote.py`` (RemoteRunner, which ships distext legs to
-worker daemons over the serving tier's wire) waits for ``serve/``
-(ROADMAP.md §1); a distext job priced to ship raises naming that item.
+  remote.py     the remote dispatch arm: RemoteRunner ships distext
+                legs to worker daemons (``python -m
+                sheep_tpu_torch.cli.worker``) over the fleet wire behind
+                the same runner seam
+
 Everything here is host code: no module loads torch.
 """
 
@@ -33,7 +35,8 @@ from .heartbeat import (HEARTBEAT_FILE_ENV, HeartbeatWriter, beat, is_stale,
 from .manifest import (Leg, Manifest, load_manifest, manifest_path,
                        plan_distext, plan_tournament, save_manifest,
                        tournament_rounds)
-from .status import render_status, status_rows, wire_status_path
+from .remote import RemoteRunner, wire_status_path
+from .status import render_status, status_rows
 from .supervise import (InlineRunner, SubprocessRunner, SupervisionFailed,
                         SupervisorConfig, TournamentSupervisor, reconcile,
                         run_supervised, sweep_attempt_debris)
@@ -46,6 +49,7 @@ __all__ = [
     "InlineRunner",
     "Leg",
     "Manifest",
+    "RemoteRunner",
     "SubprocessRunner",
     "SupervisionFailed",
     "SupervisorConfig",

@@ -8,9 +8,13 @@ per-leg state / dispatch counts / artifact presence / heartbeat age, plus
 the resource headroom the budgets track (disk usage vs
 ``SHEEP_DISK_BUDGET`` and free space, RSS vs ``SHEEP_MEM_BUDGET``).
 
-A SERVE state dir (snapshots, a WAL, a status file, no manifest) is the
-serving tier's, which is not ported yet: ``main_status`` on one raises
-SystemExit naming its ROADMAP.md queue item and prints nothing else.
+SERVE state dirs report too: pointed at a directory holding serve
+snapshots instead of a manifest, ``--status`` asks the live daemon over
+the wire (``STATS`` — role, epoch, applied seqno, per-follower
+replication lag) and falls back to the daemon's persisted
+``serve.status.json`` plus heartbeat age when the process is down — so
+an outside monitor can alert on a dead, lagging, or fenced replica with
+one command either way.
 
 Read-only by design: --status never mutates the state dir (no GC, no
 debris sweep, no manifest rewrite), so an operator can inspect a LIVE
@@ -24,7 +28,6 @@ import os
 import re
 import time
 
-from .. import unported
 from ..resources.governor import (ResourceGovernor, dir_usage, disk_free,
                                   rss_bytes)
 from .manifest import DONE, Manifest, load_manifest, manifest_path
@@ -148,20 +151,13 @@ def _ext_progress(manifest: Manifest, leg, state_dir: str | None):
     return snap.rounds, total
 
 
-def wire_status_path(state_dir: str, final_output: str) -> str:
-    """Where a leg's remote-dispatch provenance lands (one JSON per leg,
-    keyed by the artifact's basename; a copy of the reference's
-    supervisor/remote.wire_status_path, whose runner writes it)."""
-    return os.path.join(state_dir,
-                        f"wire-{os.path.basename(final_output)}.json")
-
-
 def _wire_provenance(leg, state_dir: str | None) -> dict | None:
-    """A remote leg's dispatch provenance (the reference's remote runner
-    writes ``wire-<artifact>.json`` per dispatch) — None for local legs.
+    """A remote leg's dispatch provenance (supervisor/remote.py writes
+    ``wire-<artifact>.json`` per dispatch) — None for local legs.
     The wire-beat age is NOT here: BEAT frames touch the attempt's .hb
     file, so ``heartbeat_age_s`` already tells that story for remote
     legs."""
+    from .remote import wire_status_path
     if state_dir is None:
         return None
     try:
@@ -320,35 +316,143 @@ def render_status(state_dir: str, integrity: str | None = None,
     return "\n".join(lines) + "\n"
 
 
-#: the serve daemon's state, by name: snapshots, the write-ahead log, the
-#: persisted status report (the reference's serve/state.py, serve/daemon.py)
-_SERVE_SNAP_RE = re.compile(r"^snap-(\d{12})\.snap$")
-_SERVE_FILES = ("serve.wal", "serve.status.json")
-
-
 def is_serve_dir(state_dir: str) -> bool:
     """Does this directory hold serve-daemon state (snapshots / WAL /
     status file) rather than a tournament manifest?"""
+    from ..serve.state import snap_paths
+    if snap_paths(state_dir):
+        return True
+    return any(os.path.exists(os.path.join(state_dir, name))
+               for name in ("serve.wal", "serve.status.json"))
+
+
+def serve_status_json(state_dir: str) -> dict:
+    """One serve node's operator report: role / epoch / applied seqno /
+    replication lag, live over the wire when the daemon answers, else
+    from its persisted status file — plus heartbeat age and the newest
+    snapshot, so "down" and "fenced" are both visible."""
+    from ..serve.daemon import HEARTBEAT_FILE, STATUS_FILE
+    out: dict = {"state_dir": state_dir, "kind": "serve", "alive": False}
+    hb = os.path.join(state_dir, HEARTBEAT_FILE)
     try:
-        names = os.listdir(state_dir)
+        out["heartbeat_age_s"] = round(
+            max(0.0, time.time() - os.path.getmtime(hb)), 3)
     except OSError:
-        return False
-    return any(_SERVE_SNAP_RE.match(name) or name in _SERVE_FILES
-               for name in names)
+        out["heartbeat_age_s"] = None
+    addr_file = os.path.join(state_dir, "serve.addr")
+    try:
+        host, port = open(addr_file).read().split()
+        out["addr"] = f"{host}:{port}"
+    except (OSError, ValueError):
+        host = None
+    if host is not None:
+        try:
+            from ..serve.protocol import ServeClient
+            with ServeClient(host, int(port), timeout_s=2.0) as c:
+                out["stats"] = c.kv("STATS")
+                out["alive"] = True
+                for key in ("role", "epoch", "applied_seqno", "repl_lag",
+                            "followers", "node", "leader", "moved_dest",
+                            "mig_phase", "mig_lag", "migrating",
+                            "seq_drift", "reseqs", "seq_gen",
+                            "diverged", "scrub_runs",
+                            "scrub_quarantined", "scrub_repaired",
+                            "quarantine_heals"):
+                    if key in out["stats"]:
+                        out[key] = out["stats"][key]
+        except Exception:
+            pass
+    if not out["alive"]:
+        # the daemon's last persisted self-report (daemon.status_dict)
+        try:
+            import json
+            with open(os.path.join(state_dir, STATUS_FILE)) as f:
+                last = json.load(f)
+            out["last_status"] = last
+            for key in ("role", "epoch", "applied_seqno", "node",
+                        "leader"):
+                if key in last:
+                    out[key] = last[key]
+        except (OSError, ValueError):
+            pass
+        from ..serve.state import load_serve_snapshot, snap_paths
+        snaps = snap_paths(state_dir)
+        if snaps:
+            out["newest_snapshot"] = os.path.basename(snaps[-1])
+            if "epoch" not in out:
+                try:
+                    snap = load_serve_snapshot(snaps[-1],
+                                               integrity="trust")
+                    out["epoch"] = snap.epoch
+                    out["applied_seqno"] = snap.applied_seqno
+                except Exception:
+                    pass
+    # an in-flight re-sequence manifest is visible whether or
+    # not the daemon answers — a down node mid-rebuild is exactly when
+    # the operator needs to see it
+    try:
+        from ..serve import reseq as reseq_mod
+        man = reseq_mod.load_manifest(state_dir)
+        if man is not None and man.get("phase") not in reseq_mod.DONE_PHASES:
+            out["reseq_phase"] = man.get("phase")
+    except Exception:
+        pass
+    # a durable quarantine marker is likewise visible with
+    # the daemon down — the operator must know this replica's state is
+    # divergent BEFORE deciding to restart or promote it
+    try:
+        from ..serve import scrub as scrub_mod
+        quar = scrub_mod.read_quarantine(state_dir)
+        if quar is not None:
+            out["quarantine_phase"] = quar.get("phase")
+            out["diverged"] = 1
+    except Exception:
+        pass
+    out["trace"] = newest_trace_rollup(state_dir)
+    return out
+
+
+def render_serve_status(state_dir: str) -> str:
+    rec = serve_status_json(state_dir)
+    lines = [f"serve node: {state_dir}",
+             f"alive: {'yes' if rec['alive'] else 'NO (daemon down)'}"
+             f"  heartbeat {_fmt_age(rec.get('heartbeat_age_s'))}"]
+    for key in ("node", "role", "epoch", "applied_seqno", "leader",
+                "repl_lag", "followers", "addr", "newest_snapshot",
+                "moved_dest", "mig_phase", "mig_lag", "migrating",
+                "seq_drift", "reseqs", "seq_gen", "reseq_phase",
+                "diverged", "scrub_runs", "scrub_quarantined",
+                "scrub_repaired", "quarantine_heals",
+                "quarantine_phase"):
+        if key in rec and rec[key] is not None:
+            lines.append(f"{key}: {rec[key]}")
+    st = rec.get("stats", {})
+    lags = {k[4:]: v for k, v in st.items() if k.startswith("lag_")}
+    if lags:
+        lines.append("follower lag (records):")
+        for node, lag in sorted(lags.items()):
+            lines.append(f"  {node}: {lag}")
+    lines += _trace_lines(state_dir)
+    return "\n".join(lines) + "\n"
 
 
 def main_status(state_dir: str, integrity: str | None = None,
                 as_json: bool = False) -> int:
     """The CLI face: print the report (human table, or one JSON object
     with ``--json``); exit 0 when the manifest loads (even mid-run), 1
-    when the state dir has no readable manifest.  A serve state dir's
-    replication report waits for the serving tier: SystemExit naming
-    its queue item."""
+    when the state dir has no readable manifest.  Serve state dirs get
+    the replication report instead (role/epoch/applied/lag)."""
     import sys
     if not os.path.exists(manifest_path(state_dir)):
         if os.path.isdir(state_dir) and is_serve_dir(state_dir):
-            raise SystemExit(f"supervise: the status of a serve state dir "
-                             f"{unported('serve')}")
+            if as_json:
+                import json
+                json.dump(serve_status_json(state_dir), sys.stdout,
+                          indent=2, sort_keys=True)
+                sys.stdout.write("\n")
+            else:
+                sys.stdout.write(render_serve_status(state_dir))
+            return 0
         print(f"supervise: no manifest in {state_dir}", file=sys.stderr)
         return 1
     try:

@@ -71,28 +71,6 @@ from .manifest import (DONE, PENDING, Leg, Manifest, load_manifest,
 #: own, never the reference's
 CLI_PACKAGE = "sheep_tpu_torch.cli"
 
-#: the remote workers' addresses (``host:port[,host:port...]``); the
-#: dispatch arm that ships legs to them waits for the serving tier
-WORKER_ADDRS_ENV = "SHEEP_WORKER_ADDRS"
-
-
-def _parse_worker_addrs(spec: str) -> list:
-    """``host:port[,host:port...]`` -> [(host, port), ...] (the
-    SHEEP_WORKER_ADDRS grammar; blanks skipped) — a copy of the
-    reference's serve.worker.parse_worker_addrs, so the transport is
-    priced against the same fleet."""
-    out = []
-    for entry in (spec or "").split(","):
-        entry = entry.strip()
-        if not entry:
-            continue
-        host, sep, port = entry.rpartition(":")
-        if not sep or not host:
-            raise ValueError(
-                f"{WORKER_ADDRS_ENV} entry {entry!r}: want host:port")
-        out.append((host, int(port)))
-    return out
-
 
 class SupervisionFailed(RuntimeError):
     """The tournament cannot make progress (a leg exhausted its dispatch
@@ -189,8 +167,10 @@ class SupervisorConfig:
         )
         if env.get("SHEEP_SPECULATE_S"):
             kw["speculate_after_s"] = float(env["SHEEP_SPECULATE_S"])
-        if env.get(WORKER_ADDRS_ENV):
-            kw["worker_addrs"] = _parse_worker_addrs(env[WORKER_ADDRS_ENV])
+        if env.get("SHEEP_WORKER_ADDRS"):
+            from ..serve.worker import parse_worker_addrs
+            kw["worker_addrs"] = parse_worker_addrs(
+                env["SHEEP_WORKER_ADDRS"])
         kw["worker_beat_s"] = float(env.get("SHEEP_WORKER_BEAT_S", "1")
                                     or 1)
         if env.get("SHEEP_WORKER_SPECULATE_S"):

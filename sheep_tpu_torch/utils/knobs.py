@@ -249,23 +249,100 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
        "size (0 = never)"),
     _K("SHEEP_TRACE_SAMPLE", "str", "1",
        "obs", "span sampling rate 1/N for per-request spans"),
-    # -- serve store -------------------------------------------------------
+    # -- serve daemon ------------------------------------------------------
+    _K("SHEEP_SERVE_DEADLINE_S", "float", "",
+       "serve", "default per-request deadline"),
+    _K("SHEEP_SERVE_MAX_INFLIGHT", "int", "64",
+       "serve", "admission cap; overload shed past it (inserts first)"),
+    _K("SHEEP_SERVE_SNAP_EVERY", "int", "256",
+       "serve", "snapshot seal cadence in applied inserts"),
+    _K("SHEEP_SERVE_DRIFT", "float", "0.5",
+       "serve", "cut-insert drift fraction triggering background "
+       "repartition"),
+    _K("SHEEP_SERVE_DRIFT_MIN", "int", "64",
+       "serve", "minimum cut inserts before drift can trigger"),
+    _K("SHEEP_SERVE_GROUP_COMMIT_MAX", "int", "256",
+       "serve", "max records one shared group-commit fsync may cover; "
+       "a full window seals immediately"),
+    _K("SHEEP_SERVE_GROUP_COMMIT_DELAY_S", "float", "0.002",
+       "serve", "max extra wait for companions before the group fsync "
+       "(a lone insert never waits)"),
     _K("SHEEP_SERVE_FAULT_PLAN", "plan", "",
        "serve", "serve-layer fault plan kind@site:nth "
        "(kill/hang/slow at req/query/insert/gc-append/gc-unsynced/"
        "wal/apply and the reseq-hist/fold/swap/seal phase "
        "boundaries)"),
+    _K("SHEEP_SERVE_TENANTS", "list", "",
+       "serve", "tenant specs name=dir[:graph[:k]] behind one daemon"),
+    _K("SHEEP_SERVE_MAX_RESIDENT", "int", "0",
+       "serve", "max resident tenants; coldest evicts to sealed "
+       "snapshot (0 = unlimited)"),
+    # -- replication / failover --------------------------------------------
+    _K("SHEEP_SERVE_ROLE", "str", "leader",
+       "replicate", "process role: leader / follower"),
+    _K("SHEEP_SERVE_PEERS", "list", "",
+       "replicate", "peer specs (host:port or state dirs) for "
+       "replication + failover polling"),
+    _K("SHEEP_SERVE_NODE_ID", "str", "",
+       "replicate", "stable node identity for elections and lag "
+       "reporting"),
+    _K("SHEEP_SERVE_REPL_ACKS", "int", "1",
+       "replicate", "follower acks an insert OK requires beyond the "
+       "leader fsync"),
+    _K("SHEEP_SERVE_REPL_HB_S", "float", "1",
+       "replicate", "replication stream heartbeat interval"),
+    _K("SHEEP_SERVE_FAILOVER_S", "float", "5",
+       "replicate", "silent-stream age at which followers elect"),
+    _K("SHEEP_SERVE_MAX_LAG", "int", "0",
+       "replicate", "bounded-staleness refusal for follower reads "
+       "(0 = serve any lag)"),
     _K("SHEEP_SERVE_NETFAULT_PLAN", "plan", "",
        "replicate", "network fault plan drop/partition/slow/dup at "
        "the replication sites (repl/hb), the worker-wire sites "
        "(wleg/wbeat/wart), the migration sites (msnap/mdelta/mcut), "
        "and the re-sequence swap announcement (reseq)"),
+    # -- re-sequencing -----------------------------------------------------
+    _K("SHEEP_RESEQ", "flag", "1",
+       "reseq", "background crash-safe re-sequence when the "
+       "sequence-drift detector fires (0 = repartition-only drift "
+       "handling)"),
+    _K("SHEEP_RESEQ_DRIFT", "float", "0.25",
+       "reseq", "fraction of post-cut inserts that are out-of-sequence "
+       "(or degree-rank-moved) before a re-sequence triggers"),
+    _K("SHEEP_RESEQ_DRIFT_MIN", "int", "256",
+       "reseq", "minimum post-cut inserts before sequence drift can "
+       "trigger"),
+    _K("SHEEP_RESEQ_RANK", "int", "8",
+       "reseq", "degree-rank displacement (in histogram buckets) past "
+       "which an insert counts as sequence drift"),
     _K("SHEEP_RESEQ_PIN", "str", "",
        "reseq", "pin the re-sequence pricing verdict: go / stay "
        "(unset = plan_reseq prices the rebuild)"),
     _K("SHEEP_RESEQ_HORIZON_S", "float", "60",
        "reseq", "priced rebuild cost above this horizon stays (drift "
        "keeps accruing until forced or cheaper)"),
+    # -- anti-entropy / scrubbing ------------------------------------------
+    _K("SHEEP_SCRUB_VERIFY_N", "int", "256",
+       "scrub", "VERIFY-frame cadence in applied records: the leader "
+       "stamps a state-crc checkpoint into the replication stream "
+       "every N records (0 = off); divergence is detected within one "
+       "cadence"),
+    _K("SHEEP_SCRUB_INTERVAL_S", "float", "0",
+       "scrub", "background artifact-scrub period per daemon (0 = "
+       "off; the SCRUB verb still runs one inline)"),
+    _K("SHEEP_SCRUB_PACE_S", "float", "0",
+       "scrub", "sleep between artifacts inside one scrub pass so the "
+       "re-read never starves foreground I/O"),
+    _K("SHEEP_SCRUB_PIN", "str", "",
+       "scrub", "pin the background scrub pricing verdict: go / stay "
+       "(unset = plan_scrub prices the pass)"),
+    _K("SHEEP_SCRUB_HORIZON_S", "float", "30",
+       "scrub", "priced re-verification cost above this horizon stays "
+       "(the interval re-offers the pass later)"),
+    _K("SHEEP_SCRUB_ALLOW_CORRUPT", "flag", "0",
+       "scrub", "enable the CORRUPT verb (bench/test divergence "
+       "injector that flips one live byte); production daemons refuse "
+       "it unset"),
     # -- dist --------------------------------------------------------------
     _K("SHEEP_COORDINATOR", "str", "",
        "dist",

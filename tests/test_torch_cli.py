@@ -20,9 +20,10 @@ than one worker run the reference on that many CPU devices and the port
 on that many CPU workers (``test_mesh_route_equals_reference``); a job
 of one process joins through SHEEP_COORDINATOR
 (``test_coordinator_joins_a_job_of_one``; two processes are
-tests/test_torch_distributed.py's).  Routes the port has not ported
-fail naming their ROADMAP.md queue item, and never fall back to another
-route (``test_unported_route_raises``).
+tests/test_torch_distributed.py's).  The distext route with its legs
+shipped to a remote worker daemon, which raised until the remote
+workers came over, is held the same way (``test_unported_route_raises``,
+the name it kept).
 """
 
 import contextlib
@@ -513,36 +514,43 @@ def test_distext_routes_equal_reference(tmp_path, monkeypatch, case):
         assert set(dispatches.values()) == {1}
 
 
-#: routes that wait for a queue item: (argv, env, QUEUE key)
-UNPORTED = {
+#: the distext route with its legs shipped to a remote worker daemon:
+#: (argv, env; ``{addr}`` is the worker's host:port)
+SHIPPED = {
     "distext_ship": (["--distext", "-o", "t.tre"],
-                     {"SHEEP_WORKER_ADDRS": "127.0.0.1:1",
-                      "SHEEP_WORKER_TRANSPORT": "ship"}, "remote"),
+                     {"SHEEP_DISTEXT_LEGS": "2",
+                      "SHEEP_WORKER_ADDRS": "{addr}",
+                      "SHEEP_WORKER_TRANSPORT": "ship"}),
 }
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_route_raises(tmp_path, monkeypatch, case):
-    """Each unported route fails naming its queue item before it
-    dispatches any work; none falls back to another route."""
-    from sheep_tpu_torch import QUEUE
-    from sheep_tpu_torch.cli import graph2tree
+@pytest.mark.parametrize("case", sorted(SHIPPED))
+def test_unported_route_raises(tmp_path, case):
+    """The route that raised until the remote workers came over:
+    ``graph2tree --distext`` pinned to ship, each package's run shipping
+    its hist and map legs to one port worker daemon (the reference's
+    supervisor, a process of its own, ships to it over the wire too),
+    with the same exit code, stdout, tree, manifest and leg files as the
+    reference's; every leg dispatched once."""
+    from sheep_tpu_torch.serve.worker import WorkerDaemon
 
-    argv, env, key = UNPORTED[case]
-    monkeypatch.chdir(tmp_path)
-    err = io.StringIO()
-    with port_env(env), contextlib.redirect_stderr(err):
-        rc = graph2tree.main([HEP, *argv], device="cpu")
-    msg = err.getvalue()
-    assert rc == 1
-    assert QUEUE[key] in msg and "ROADMAP.md" in msg, msg
-    # the planned job's manifest only: no leg ran, no tree was written
-    assert sorted(os.listdir(tmp_path)) == ["t.tre.distext"]
-    state = tmp_path / "t.tre.distext"
-    assert sorted(os.listdir(state)) == ["manifest.json",
-                                         "manifest.json.sum"]
-    legs = json.loads((state / "manifest.json").read_text())["legs"]
-    assert {leg["dispatches"] for leg in legs} == {0}
+    argv, env = SHIPPED[case]
+    worker = WorkerDaemon(str(tmp_path / "w")).start()
+    try:
+        addr = "{}:{}".format(*worker.address)
+        env = {k: v.replace("{addr}", addr) for k, v in env.items()}
+        (tmp_path / "runs").mkdir()
+        got = _run_steps(tmp_path / "runs", [G(*argv, env=env)])
+    finally:
+        worker.shutdown()
+    state = "t.tre.distext"
+    assert got["t.tre"] == got[os.path.join(state, "hep-th.tre")]
+    legs = json.loads(got[os.path.join(state, "manifest.json")])["legs"]
+    assert {leg["dispatches"] for leg in legs} == {1}
+    wires = [k for k in got if os.path.basename(k).startswith("wire-")]
+    assert len(wires) == 4, wires  # 2 hist + 2 map legs went remote
+    assert any(n.endswith(".slice.dat")
+               for n in os.listdir(tmp_path / "w"))
 
 
 #: the device routes on a mesh of more than one worker: id -> (CPU

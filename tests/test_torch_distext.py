@@ -682,26 +682,49 @@ def test_subprocess_legs_are_the_ports_and_load_no_torch(
 
 def test_ship_transport_raises_naming_the_queue_item(tmp_path, monkeypatch,
                                                      dist_env):
-    """Worker addresses with the transport pinned (or priced) to ship:
-    the job fails naming the remote workers' queue item before any leg is
-    dispatched; pinned local, it runs on this host."""
-    from sheep_tpu_torch import QUEUE, unported
+    """Worker addresses with the transport pinned to ship: each
+    package's job ships its hist and map legs to two worker daemons of
+    its own package (no shared state dir) and the port's manifest,
+    dispatch counts, tree and leg files equal the reference's; pinned
+    local, no leg touches the wire and the tree is the same."""
     path, *_ = graph_file(tmp_path)
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("SHEEP_WORKER_ADDRS", "127.0.0.1:1,127.0.0.1:2")
     monkeypatch.setenv("SHEEP_WORKER_TRANSPORT", "ship")
-    cfg = mod("port", "supervisor").SupervisorConfig.from_env(
-        poll_s=0.01, grammar=False)
-    assert cfg.worker_addrs == [("127.0.0.1", 1), ("127.0.0.1", 2)]
-    rec = distext("port", path, worker_addrs=cfg.worker_addrs)
-    assert rec["raised"][0] == "SupervisionFailed"
-    assert rec["raised"][1].endswith(unported("remote"))
-    assert QUEUE["remote"] != QUEUE["serve"]
-    man = mod("port", "supervisor.manifest").load_manifest("st")
-    assert all(leg.dispatches == 0 for leg in man.legs)
+
+    def run(side):
+        pair = [mod(side, "serve.worker").WorkerDaemon(f"w{i}").start()
+                for i in (1, 2)]
+        try:
+            monkeypatch.setenv("SHEEP_WORKER_ADDRS", ",".join(
+                f"{h}:{p}" for h, p in (w.address for w in pair)))
+            cfg = mod(side, "supervisor").SupervisorConfig.from_env(
+                poll_s=0.01, grammar=False)
+            assert len(cfg.worker_addrs) == 2
+            rec = distext(side, path, worker_addrs=cfg.worker_addrs,
+                          worker_beat_s=0.05)
+            wires = {k: rec["files"].pop(k) for k in list(rec["files"])
+                     if k.startswith("wire-")}
+            rec["wire"] = {k: (json.loads(v)["dispatches"],
+                               json.loads(v)["speculations"])
+                           for k, v in wires.items()}
+            rec["shipped"] = [sorted(n for n in os.listdir(w.state_dir)
+                                     if n.endswith(".slice.dat"))
+                              for w in pair]
+            return rec
+        finally:
+            for w in pair:
+                w.shutdown()
+
+    ref, port = both(tmp_path, monkeypatch, run)
+    assert "raised" not in port, port.get("raised")
+    assert port == ref
+    assert set(port["dispatches"].values()) == {1}
+    assert len(port["wire"]) == 4 and all(port["shipped"])
     monkeypatch.setenv("SHEEP_WORKER_TRANSPORT", "local")
-    again = distext("port", path, worker_addrs=cfg.worker_addrs)
-    assert "tree" in again
+    monkeypatch.chdir(tmp_path / "port")
+    again = distext("port", path, state_dir="st2",
+                    worker_addrs=[("127.0.0.1", 1)])
+    assert again["tree"] == port["tree"]
+    assert not [k for k in again["files"] if k.startswith("wire-")]
 
 
 def test_metrics_registry_equals_reference(monkeypatch):

@@ -3,9 +3,9 @@ reference's: a clean trial directory, each artifact class fuzzed under
 each policy, a distext state dir (its ``.hist`` histograms and its
 manifest's shard-map chain) clean and fuzzed, a serve state dir (its
 ``.wal``, ``.snap`` and ``reseq.json`` chain) clean and fuzzed,
-``--repair-sidecar``, and the artifacts of unported modules (the serve
-daemon's scrub and quarantine chains), which are reported as failures
-naming their ROADMAP.md queue item."""
+``--repair-sidecar``, and a scrubbed and quarantined serve state dir
+(its ``scrub.json`` chain, quarantine marker and ``*.quarantined``
+artifacts) clean and torn."""
 
 import contextlib
 import io
@@ -17,7 +17,6 @@ import pytest
 
 from sheep_tpu.cli import fsck as ref_cli
 from sheep_tpu.integrity import fsck as ref_fsck
-from sheep_tpu_torch import QUEUE
 from sheep_tpu_torch.cli import fsck as port_cli
 from sheep_tpu_torch.integrity import fsck as port_fsck
 
@@ -131,29 +130,96 @@ def test_cli_equals_reference(tmp_path, argv):
         assert os.path.exists(tmp_path / "port" / "t.tre.sum")
 
 
-#: the serve daemon's chains (scrub history, quarantine), which wait for
-#: the daemon's queue item
-UNPORTED = {
-    "scrub.json": "serve", "quarantine.json": "serve",
-    "old.tre.quarantined": "serve",
+#: the serve daemon's anti-entropy chains: the hash-chained scrub
+#: history, the dir quarantine marker and a quarantined artifact, each
+#: with how to tear it
+SCRUBBED = {
+    "scrub.json": "tamper", "quarantine.json": "garble",
+    "old.tre.quarantined": "flip",
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+def _scrubbed_dir(root) -> str:
+    """A scrubbed and quarantined serve state dir made by the port: a
+    store with inserts, two scrub passes on the scrub chain, the dir
+    quarantine marker, and a rotted tree artifact the scrubber moved to
+    ``old.tre.quarantined``."""
+    from sheep_tpu_torch.core import build_forest, degree_sequence
+    from sheep_tpu_torch.io import write_tree
+    from sheep_tpu_torch.serve import scrub
+    sd = _serve_dir(root)
+    rng = np.random.default_rng(19)
+    tail = rng.integers(0, 90, 300).astype(np.uint32)
+    head = rng.integers(0, 90, 300).astype(np.uint32)
+    seq = degree_sequence(tail, head)
+    forest = build_forest(tail, head, seq)
+    tre = os.path.join(sd, "old.tre")
+    write_tree(tre, forest.parent, forest.pst_weight)
+    scrub.run_scrub(sd)
+    _fuzz(tre, "flip")
+    scrub.run_scrub(sd)
+    assert os.path.exists(tre + ".quarantined")
+    scrub.enter_quarantine(sd, "state_crc mismatch at a VERIFY frame",
+                           seqno=3)
+    return sd
+
+
+def _torn(sd: str, name: str) -> None:
+    path = os.path.join(sd, name)
+    how = SCRUBBED[name]
+    if how == "tamper":  # a run record edited: the chain breaks
+        import json
+        with open(path) as f:
+            runs = json.load(f)
+        runs[0]["checked"] += 1
+        with open(path, "w") as f:
+            json.dump(runs, f)
+    elif how == "garble":  # an unreadable marker still reads quarantined
+        with open(path, "wb") as f:
+            f.write(b"{not json")
+    else:
+        _fuzz(path, "flip")
+
+
+@pytest.mark.parametrize("name", sorted(SCRUBBED))
 def test_unported_artifact_is_a_failure(tmp_path, name):
-    """An artifact only an unported module can check fails, naming the
-    queue item it waits for; the port's own artifacts beside it pass."""
-    d = _trial_dir(tmp_path)
-    with open(os.path.join(d, name), "wb") as f:
-        f.write(b"{}")
-    results, failures = port_fsck.fsck_paths([d])
-    assert [r[0] for r in failures] == [os.path.join(d, name)]
-    assert QUEUE[UNPORTED[name]] in failures[0][2]
-    assert "ROADMAP.md" in failures[0][2]
-    rc, out = _run_cli(port_cli, [d], d)
-    assert rc == 1
-    assert f"FAIL {os.path.join(d, name)}:" in out
-    assert "item 1" in failures[0][2]  # the serve daemon
+    """A scrubbed and quarantined serve state dir, clean and with this
+    chain torn: the port's fsck lines (library under every policy, and
+    the tool) equal the reference's, each run on its own copy at one
+    path (repair mode reclaims quarantined artifacts whose bytes now
+    verify)."""
+    (tmp_path / "t").mkdir()
+    template = _scrubbed_dir(tmp_path / "t")
+    import warnings
+    for torn in (False, True):
+        got = {}
+        for side, (lib, cli) in (("ref", (ref_fsck, ref_cli)),
+                                 ("port", (port_fsck, port_cli))):
+            rec = []
+            for mode in ("strict", "repair", "trust"):
+                sd = str(tmp_path / "sd")
+                shutil.rmtree(sd, ignore_errors=True)
+                shutil.copytree(template, sd)
+                if torn:
+                    _torn(sd, name)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    rec.append(_results(lib, [sd], mode))
+                shutil.rmtree(sd)
+                shutil.copytree(template, sd)
+                if torn:
+                    _torn(sd, name)
+                rec.append(_run_cli(cli, ["-m", mode, sd], sd))
+                rec.append(_dir_bytes(sd))
+            got[side] = rec
+        assert got["port"] == got["ref"], (name, torn)
+        strict = got["port"][0]
+        lines = [r for r in strict[0] if os.path.basename(r[0]) == name]
+        assert lines, (name, strict)
+        if not torn:
+            assert strict[1] == 0, strict
+        elif name == "scrub.json":
+            assert strict[1] >= 1 and "scrub" in str(strict), strict
 
 
 #: a serve state dir's artifacts: the group-committed WAL, the snapshot

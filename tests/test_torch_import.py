@@ -53,7 +53,15 @@ NEW_MODULES = (
     "sheep_tpu_torch.serve.protocol", "sheep_tpu_torch.serve.admission",
     "sheep_tpu_torch.serve.faults", "sheep_tpu_torch.serve.netfaults",
     "sheep_tpu_torch.obs.merge", "sheep_tpu_torch.cli.tools",
-    "sheep_tpu_torch.cli.trace", "sheep_tpu_torch.scripts.serve_drive")
+    "sheep_tpu_torch.cli.trace", "sheep_tpu_torch.scripts.serve_drive",
+    # the serve daemon with replication, scrub and tenants, and the
+    # remote build workers
+    "sheep_tpu_torch.serve.daemon", "sheep_tpu_torch.serve.replicate",
+    "sheep_tpu_torch.serve.cluster", "sheep_tpu_torch.serve.scrub",
+    "sheep_tpu_torch.serve.tenants", "sheep_tpu_torch.serve.worker",
+    "sheep_tpu_torch.supervisor.remote", "sheep_tpu_torch.cli.serve",
+    "sheep_tpu_torch.cli.worker", "sheep_tpu_torch.scripts.daemon_drive",
+    "sheep_tpu_torch.scripts.remote_drive")
 
 #: modules a host route imports: none may load torch on import
 TORCH_FREE = (
@@ -79,7 +87,15 @@ TORCH_FREE = (
     "sheep_tpu_torch.serve.protocol", "sheep_tpu_torch.serve.admission",
     "sheep_tpu_torch.serve.faults", "sheep_tpu_torch.serve.netfaults",
     "sheep_tpu_torch.obs.merge", "sheep_tpu_torch.cli.tools",
-    "sheep_tpu_torch.cli.trace", "sheep_tpu_torch.scripts.serve_drive")
+    "sheep_tpu_torch.cli.trace", "sheep_tpu_torch.scripts.serve_drive",
+    # the serve daemon with replication, scrub and tenants, and the
+    # remote build workers
+    "sheep_tpu_torch.serve.daemon", "sheep_tpu_torch.serve.replicate",
+    "sheep_tpu_torch.serve.cluster", "sheep_tpu_torch.serve.scrub",
+    "sheep_tpu_torch.serve.tenants", "sheep_tpu_torch.serve.worker",
+    "sheep_tpu_torch.supervisor.remote", "sheep_tpu_torch.cli.serve",
+    "sheep_tpu_torch.cli.worker", "sheep_tpu_torch.scripts.daemon_drive",
+    "sheep_tpu_torch.scripts.remote_drive")
 
 
 def _modules():
@@ -168,7 +184,13 @@ def test_lazy_packages_resolve_every_name():
     "sheep_tpu_torch/ops",
     # the serve store, the merge of traces, the tools and the trace tool
     "sheep_tpu_torch/serve", "sheep_tpu_torch/obs/merge.py",
-    "sheep_tpu_torch/cli/tools.py", "sheep_tpu_torch/cli/trace.py"])
+    "sheep_tpu_torch/cli/tools.py", "sheep_tpu_torch/cli/trace.py",
+    # the serve daemon, replication, scrub, tenants, the remote workers
+    "sheep_tpu_torch/serve/daemon.py", "sheep_tpu_torch/serve/replicate.py",
+    "sheep_tpu_torch/serve/cluster.py", "sheep_tpu_torch/serve/scrub.py",
+    "sheep_tpu_torch/serve/tenants.py", "sheep_tpu_torch/serve/worker.py",
+    "sheep_tpu_torch/supervisor/remote.py", "sheep_tpu_torch/cli/serve.py",
+    "sheep_tpu_torch/cli/worker.py"])
 def test_source_imports_no_jax_and_no_sheep_tpu(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -191,30 +213,34 @@ def test_source_imports_no_jax_and_no_sheep_tpu(path):
 def test_serve_package_exports_only_ported_modules():
     """The port's ``serve/__init__.py`` imports only the modules that are
     ported (``state.py``'s ``from . import`` runs it): importing the
-    package loads no daemon, replication, cluster, tenants or router
-    module, and exports none of their names."""
+    package loads the daemon, replication, the cluster, scrub and the
+    tenants, exports the daemon's names, and loads and exports nothing of
+    the routed fleet (router, migrate, rebalance)."""
     prog = ("import sys\n"
             "import sheep_tpu_torch.serve as s\n"
             "import sheep_tpu_torch.serve.state, sheep_tpu_torch.serve.reseq\n"
             "print(sorted(k.rsplit('.', 1)[1] for k in sys.modules\n"
             "             if k.startswith('sheep_tpu_torch.serve.')))\n"
             "print(sorted(n for n in ('ServeDaemon', 'ServeConfig', "
-            "'Router', 'ReplicationHub', 'TenantManager', 'ClusterConfig') "
-            "if hasattr(s, n)))\n")
+            "'Router', 'HashRing', 'parse_clusters', 'ReplicationHub', "
+            "'TenantManager', 'ClusterConfig') if hasattr(s, n)))\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     loaded, names = out.stdout.splitlines()
-    assert eval(loaded) == ["admission", "faults", "netfaults", "protocol",
-                            "reseq", "state", "wal"]
-    assert names == "[]"
+    assert eval(loaded) == ["admission", "cluster", "daemon", "faults",
+                            "netfaults", "protocol", "replicate", "reseq",
+                            "scrub", "state", "tenants", "wal"]
+    assert eval(names) == ["ClusterConfig", "ReplicationHub",
+                           "ServeConfig", "ServeDaemon", "TenantManager"]
     files = sorted(f for f in os.listdir(os.path.join(PKG, "serve"))
                    if f.endswith(".py"))
-    assert files == ["__init__.py", "admission.py", "faults.py",
-                     "netfaults.py", "protocol.py", "reseq.py", "state.py",
-                     "wal.py"]
+    assert files == ["__init__.py", "admission.py", "cluster.py",
+                     "daemon.py", "faults.py", "netfaults.py",
+                     "protocol.py", "replicate.py", "reseq.py", "scrub.py",
+                     "state.py", "tenants.py", "wal.py", "worker.py"]
 
 
 def test_source_names_no_reference_tool_to_run():

@@ -586,24 +586,89 @@ def test_status_equals_reference(tmp_path, monkeypatch, small_graph):
     assert any("resume: rerun" in ln for ln in port[0]["k"][1])
 
 
-def test_status_of_a_serve_dir_names_the_queue_item(tmp_path, capsys):
-    """A serve state dir's report waits for the serving tier: it exits
-    naming that queue item and prints nothing in its place."""
-    from sheep_tpu_torch import QUEUE
-    from sheep_tpu_torch.cli import supervise
-    from sheep_tpu_torch.supervisor.status import is_serve_dir
-    for name in ("snap-000000000001.snap", "serve.wal", "serve.status.json"):
-        d = tmp_path / name.replace(".", "_")
-        d.mkdir()
-        (d / name).write_bytes(b"x")
-        assert is_serve_dir(str(d))
-        with pytest.raises(SystemExit) as exc:
-            supervise.main(["--status", "-d", str(d)])
-        assert QUEUE["serve"] in str(exc.value.code)
-        assert capsys.readouterr().out == ""
-    (tmp_path / "plain").mkdir()
-    assert not is_serve_dir(str(tmp_path / "plain"))
-    assert not is_serve_dir(str(tmp_path / "missing"))
+def test_status_of_a_serve_dir_names_the_queue_item(tmp_path, capsys,
+                                                    monkeypatch):
+    """The twin of tests/test_replicate.py's
+    ``test_supervise_status_on_serve_dir``: ``supervise --status`` and
+    ``--status --json`` on a live leader's, a live follower's and a dead
+    leader's serve state dir print what the reference prints, clock
+    fields (ages, latencies, uptimes, pids, ports) masked."""
+    import test_replicate as R
+    from torch_twin import _empty, clear_fault_plans, port_twin
+
+    def report(side, sd):
+        cli = mod(side, "cli.supervise")
+        out = []
+        for argv in (["--status", "-d", sd],
+                     ["--status", "--json", "-d", sd]):
+            rc = cli.main(argv)
+            out.append((rc, capsys.readouterr().out))
+        return out
+
+    def scenario(side, work):
+        spawn = R._spawn_cluster if side == "ref" \
+            else port_twin(R._spawn_cluster)
+        kill = R._abrupt_kill if side == "ref" else port_twin(R._abrupt_kill)
+        lead, (fol,), _ = spawn(work, hb_s=0.05, failover_s=30.0)
+        try:
+            client = mod(side, "serve.protocol").ServeClient
+            with client(*lead.address) as c:
+                c.insert([(3, 8)])
+            addrs = [f"{h}:{p}" for h, p in (lead.address, fol.address)]
+            rec = {"lead": report(side, lead.core.state_dir),
+                   "fol": report(side, fol.core.state_dir)}
+            lead._write_status(force=True)
+            kill(lead)
+            rec["dead"] = report(side, lead.core.state_dir)
+        finally:
+            fol.shutdown()
+        return masked_status(rec, addrs)
+
+    out = {}
+    for side in PKGS:  # one path for both: the reports name the dir
+        clear_fault_plans()
+        work = tmp_path / "work"
+        _empty(work)
+        out[side] = scenario(side, work)
+    assert out["port"] == out["ref"]
+    lead_json = json.loads(out["port"]["lead"][1][1])
+    assert lead_json["alive"] and lead_json["role"] == "leader"
+    assert lead_json["applied_seqno"] == 1 and lead_json["followers"] == 1
+    dead_json = json.loads(out["port"]["dead"][1][1])
+    assert not dead_json["alive"] and dead_json["applied_seqno"] == 1
+    assert out["port"]["dead"][0][0] == 0
+
+
+#: report fields that hold clocks, ports or pids
+_CLOCK_KEY = re.compile(r"(_ms|_s|^node|^leader|^addr|^pid|^t|"
+                        r"^uptime.*)$")
+
+
+def masked_status(rec: dict, addrs: list) -> dict:
+    """The status reports with the addresses and clock fields masked."""
+    def mask_json(v):
+        if isinstance(v, dict):
+            return {k: ("*" if _CLOCK_KEY.search(k) else mask_json(x))
+                    for k, x in v.items()}
+        if isinstance(v, list):
+            return [mask_json(x) for x in v]
+        return v
+
+    def mask_text(t: str) -> str:
+        for i, a in enumerate(addrs):
+            t = t.replace(a, f"ADDR{i}")
+        t = re.sub(r"heartbeat \S+", "heartbeat *", t)
+        return re.sub(r"^((?:\w+_)?(?:node|leader|addr|uptime_s)): .*$",
+                      r"\1: *", t, flags=re.M)
+
+    out = {}
+    for node, ((rc_t, text), (rc_j, js)) in rec.items():
+        for i, a in enumerate(addrs):
+            js = js.replace(a, f"ADDR{i}")
+        out[node] = ((rc_t, mask_text(text)),
+                     (rc_j, json.dumps(mask_json(json.loads(js)),
+                                       sort_keys=True)))
+    return out
 
 
 def _cli_env(extra=None):
