@@ -169,6 +169,21 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    three equal state crcs, ``supervise --status --json`` agreeing;
    SCRUB, a CORRUPTed follower quarantined and healed; fsck of every
    state dir; torch mapped into none;
+9h''. the routed fleet (``fleet`` line), host code in a child process
+   (``python -m sheep_tpu_torch.scripts.fleet_drive run``, its process
+   tree sampled), the reference's FLEETBENCH at 9h's sizes: two
+   single-node clusters (``cli.serve``), 9h's 2^23 store as the hot
+   tenant on the cluster the ring gives it, copies of 9h's 2^20 store as
+   each cluster's default tenant, a warm tenant beside hot and a cold one
+   on the other cluster, behind ``cli.route`` with ``SHEEP_REBALANCE=1``;
+   inserts on all three and 16-vid reads on hot through the router; the
+   rebalancer's own verdict moves hot to the other cluster under that
+   traffic; every tenant's acknowledged inserts applied once at its
+   final owner, the source answering ``ERR moved``, hot's crc at the cut
+   equal to the source's sealed one, every ``PART`` answer read through
+   the router equal to the final owner's, ``cli.top --json`` showing the
+   ``MIG`` column and then the new placement, fsck of every state dir;
+   each process's peak RSS; torch mapped into none;
 10. the fault-tolerant build (``runtime.build_graph_resilient``, ladder
     single -> host -> stream -> spill, checkpoints in a temporary
     directory) on the real-size graph: equal to the oracle, no degrade,
@@ -2677,6 +2692,39 @@ def daemon_phase(serve_work: str, **sizes) -> dict:
     return rec
 
 
+def fleet_phase(serve_work: str) -> dict:
+    """The routed fleet at real size (``fleet`` line): ``python -m
+    sheep_tpu_torch.scripts.fleet_drive run`` in a child process that
+    never loads torch, its process tree sampled, with the serve phase's
+    2^23 store (``serve_work/sd``, after the daemon phase's processes
+    exited) as the hot tenant in place and copies of its 2^20 store
+    (``serve_work/sd_cut``) as the others; the snapshots name the graph
+    dir's files, so it runs while that dir is kept.  Each process's peak
+    RSS comes from the sampler."""
+    argv = [sys.executable, "-m", "sheep_tpu_torch.scripts.fleet_drive",
+            "run", os.path.join(serve_work, "fleet"),
+            "--hot", os.path.join(serve_work, "sd"),
+            "--cut", os.path.join(serve_work, "sd_cut")]
+    rc, out, err, wall, sampler = run_cmd_sampled(argv, timeout=900)
+    found = [ln for ln in out.splitlines() if ln.startswith("fleet_record ")]
+    if rc != 0 or not found:
+        raise AssertionError(f"fleet: the drive exited {rc}:\n{out[-4000:]}"
+                             f"\n{err[-6000:]}")
+    rec = json.loads(found[-1].split(" ", 1)[1])
+    rec["wall_s"] = wall
+    rec["nodes"] = _proc_rows(sampler, "sheep_tpu_torch.cli.serve")
+    rec["routers"] = [dict(r, name="router") for r in
+                      _proc_rows(sampler, "sheep_tpu_torch.cli.route")]
+    rec["driver_peak_rss_bytes"] = sampler.root_record()["peak_rss_bytes"]
+    rec["torch_mapped"] = sampler.torch_mapped()
+    rec["processes"] = len(sampler.procs)
+    log("fleet " + json.dumps(rec))
+    if rec["torch_mapped"] or not all(rec["checks"].values()):
+        raise AssertionError(f"fleet: checks failed: {rec['checks']}, "
+                             f"torch mapped: {rec['torch_mapped']}")
+    return rec
+
+
 def remote_phase(gdir: str, distext_rec: dict) -> dict:
     """The remote build workers at real size (``remote`` line):
     ``python -m sheep_tpu_torch.scripts.remote_drive run`` in a child
@@ -3406,6 +3454,7 @@ def main() -> int:
             tools_phase(gdir, part_rec)
             serve_rec = serve_phase(gdir, os.path.join(keep, "serve"))
             daemon_phase(os.path.join(keep, "serve"))
+            fleet_phase(os.path.join(keep, "serve"))
         finally:
             shutil.rmtree(gdir, ignore_errors=True)
         # the default tail's last run (the runs in between are other arms)

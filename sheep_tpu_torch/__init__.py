@@ -38,7 +38,7 @@ Layout:
   cli/        the command-line tools (python -m sheep_tpu_torch.cli.<tool>:
               graph2tree, degree_sequence, make_graph, partition_tree,
               merge_trees, fsck, plan, supervise, distext, trace, serve,
-              worker), and
+              worker, route, top), and
               cli/tools.py, the six analysis tools the util/ shims start
               (tree2dot, tree2adj, graph2adj, vfennel, efennel,
               read_partition)
@@ -50,7 +50,9 @@ Layout:
               crash-safe re-sequence job, admission, the wire grammar
               and client, the fault plans; the daemon with WAL
               replication, epoch-fenced failover, anti-entropy scrub
-              and tenants; the remote build workers
+              and tenants; the remote build workers; the routed fleet
+              (the consistent-hash router, live tenant migration, the
+              rebalancer)
   supervisor/ the chaos-hardened tournament supervisor: heartbeat,
               durable manifest, SHEEP_FAULT_PLAN chaos, the orchestrator
               whose runners start the port's own tools or ship distext
@@ -61,10 +63,9 @@ Layout:
               SHEEP_* knob registry
   convert     numpy state <-> tensors on a device
 
-The host layers are copies of the reference's modules; their notes still
-name reference modules the port has not ported yet (the routed fleet:
-serve/router.py, migrate.py, rebalance.py, cli/route.py, cli/top.py),
-whose queue is in ROADMAP.md §1 (``QUEUE`` below names the item).
+The host layers are copies of the reference's modules.  The port has
+every module of the reference but ``utils/compat.py``, a jax
+``shard_map`` shim whose job ``parallel.mesh.Mesh`` does.
 
 Only the routes that reach the card load torch: the package, ``ops``
 and ``runtime`` resolve their device modules lazily, so the serial,
@@ -82,31 +83,6 @@ from __future__ import annotations
 INVALID_JNID = 0xFFFFFFFF
 INVALID_VID = 0xFFFFFFFF
 INVALID_PART = -1
-
-#: reference modules not ported yet, by their ROADMAP.md §1 queue item;
-#: a route that needs one fails with a message naming its item
-FLEET = "item 1 (serve, slice D: the routed fleet)"
-QUEUE = {
-    "router": FLEET,
-    "migrate": FLEET,
-    "rebalance": FLEET,
-    "route": FLEET,
-    "top": FLEET,
-}
-
-
-def unported(*keys: str) -> str:
-    """The tail of the message a route that needs the ``QUEUE`` items
-    ``keys`` raises."""
-    items = list(dict.fromkeys(QUEUE[k] for k in keys))
-    return (f"is not ported to sheep_tpu_torch yet: it waits for "
-            f"ROADMAP.md §1 {' and '.join(items)}")
-
-
-def unported_ascii(*keys: str) -> str:
-    """:func:`unported` in ASCII, for the serve wire (one non-ASCII byte
-    in a response line costs the client its connection)."""
-    return unported(*keys).replace("§", "section ")
 
 
 def resolve_device(device=None):

@@ -28,9 +28,9 @@ verdicts, block fitting); measured seconds are reported beside each
 candidate in ``plan --explain`` but never reorder the ladder — rung
 order encodes correctness/availability constraints the clock knows
 nothing about.  The distext job's leg count (``plan_distext_legs``)
-and its transport decision (``plan_transport``) are priced here; the
-reference's migration, re-sequence and scrub pricing come with the
-serving tier that reads them.
+and its transport decision (``plan_transport``) are priced here, and so
+are the serving tier's live migration (``plan_migration``), re-sequence
+(``plan_reseq``) and scrub (``plan_scrub``).
 """
 
 from __future__ import annotations
@@ -488,6 +488,65 @@ def plan_transport(records: int, legs: int, remote_workers: int,
         out.update(transport="local", provenance=PROV_PRICED,
                    reason="shipping the slices does not beat the local "
                           "disk waves")
+    return out
+
+
+#: pin the rebalancer's migrate decision: "go" | "stay" | "" (priced)
+REBALANCE_PIN_ENV = "SHEEP_REBALANCE_PIN"
+
+
+def plan_migration(records: int, tenant_qps: float, src_qps: float,
+                   dest_qps: float, pin: str | None = None,
+                   horizon_s: float = 60.0) -> dict:
+    """Price a live tenant migration for the rebalancer
+    (serve/rebalance.py): is moving this tenant from its hot cluster to
+    the cool one worth the transfer?
+
+    The model reuses the transport bandwidth constants: the phase-1
+    snapshot pays one wire crossing plus one local landing stream
+    (``bytes/WIRE + bytes/DISK``); the phase-2 delta rides under live
+    traffic and the phase-3 cutover is fenced milliseconds, so the
+    snapshot dominates.  GO only when BOTH hold: the qps imbalance
+    between the clusters strictly SHRINKS after the move (otherwise the
+    migration is churn, not balance), and the transfer amortizes inside
+    ``horizon_s`` of the imbalance it removes.  Ties stay home — the
+    same strictly-cheaper discipline as :func:`plan_transport`.
+    ``SHEEP_REBALANCE_PIN`` is the operator's word (provenance
+    "forced"); the rebalancer's own hysteresis/cooldown gates run
+    BEFORE this pricing, not inside it."""
+    if pin is None:
+        pin = os.environ.get(REBALANCE_PIN_ENV, "")
+    blob = max(0, int(records)) * 12
+    out = {"blob_bytes": blob, "tenant_qps": round(tenant_qps, 3),
+           "src_qps": round(src_qps, 3),
+           "dest_qps": round(dest_qps, 3),
+           "cost_s": None, "reason": ""}
+    if pin in ("go", "stay"):
+        out.update(migrate=pin, provenance=PROV_FORCED,
+                   reason=f"pinned by {REBALANCE_PIN_ENV}")
+        return out
+    if pin:
+        raise ValueError(f"{REBALANCE_PIN_ENV}={pin!r} must be "
+                         f"'go' or 'stay'")
+    cost_s = blob / TRANSPORT_WIRE_BPS + blob / TRANSPORT_DISK_BPS
+    out["cost_s"] = round(cost_s, 6)
+    before = abs(src_qps - dest_qps)
+    after = abs((src_qps - tenant_qps) - (dest_qps + tenant_qps))
+    out["imbalance_before"] = round(before, 3)
+    out["imbalance_after"] = round(after, 3)
+    if tenant_qps <= 0 or after >= before:
+        out.update(migrate="stay", provenance=PROV_DEFAULT,
+                   reason="moving this tenant does not shrink the "
+                          "cluster qps imbalance")
+        return out
+    if cost_s > horizon_s:
+        out.update(migrate="stay", provenance=PROV_PRICED,
+                   reason=f"snapshot transfer ({cost_s:.1f}s) does not "
+                          f"amortize inside the {horizon_s:g}s horizon")
+        return out
+    out.update(migrate="go", provenance=PROV_PRICED,
+               reason=f"imbalance {before:.1f} -> {after:.1f} qps for a "
+                      f"{cost_s:.2f}s transfer")
     return out
 
 

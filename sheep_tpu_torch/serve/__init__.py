@@ -1,11 +1,13 @@
-"""The serve tier (port of sheep_tpu/serve, less the routed fleet): the
-crash-safe, replicated partition service.  The tree and partition stay
-resident in a state dir; incremental edge inserts fold in by the batch
-build's union-find transform through a group-committed write-ahead log,
+"""The serve tier (port of sheep_tpu/serve): the crash-safe, replicated
+partition service and the routed fleet in front of it.  The tree and
+partition stay resident in a state dir; incremental edge inserts fold in
+by the batch build's union-find transform through a group-committed write-ahead log,
 so nothing acknowledged is lost.  A leader ships that WAL to followers,
 which apply it through the same insert path and serve reads; failover
-is an epoch-fenced, quorum-voted promotion.  All of it is host code: it
-loads no torch.
+is an epoch-fenced, quorum-voted promotion.  A router hashes tenants
+onto clusters, and a tenant moves between clusters by live migration,
+which the router's rebalancer starts on its own.  All of it is host
+code: it loads no torch.
 
   wal.py        checksummed, fsync'd, epoch-stamped write-ahead log
   state.py      ServeCore: snapshot format, recovery (snapshot+replay),
@@ -27,14 +29,18 @@ loads no torch.
   tenants.py    multi-tenancy: N state dirs behind one daemon, the
                 TENANT selector, governor-priced eviction
   worker.py     remote build workers: distext legs over the wire
+  router.py     the fleet tier: consistent-hash tenants onto clusters,
+                read spreading, epoch-safe retries, placement
+                overrides, the fleet scrape
+  migrate.py    live tenant migration: snapshot bootstrap, delta
+                stream, epoch-fenced cutover, resumable manifests
+  rebalance.py  the router's rebalancer: fleet scrape -> priced verdict
   faults.py     SHEEP_SERVE_FAULT_PLAN (kill/hang/slow @ request sites)
   netfaults.py  SHEEP_SERVE_NETFAULT_PLAN (drop/partition/slow/dup @
                 replication frame sites)
 
-The routed fleet (the reference's router.py, migrate.py, rebalance.py)
-waits for ROADMAP.md §1 (``sheep_tpu_torch.QUEUE``): nothing here
-imports it, because any ``from . import`` inside ``state.py`` runs this
-file.  Operational face: ``python -m sheep_tpu_torch.cli.serve``; state
+Operational face: ``python -m sheep_tpu_torch.cli.serve`` and
+``python -m sheep_tpu_torch.cli.route`` (``cli.top`` watches it); state
 dirs are fsck-able (``python -m sheep_tpu_torch.cli.fsck state-dir/``
 checks ``.wal``, ``.snap``, ``reseq.json``, ``scrub.json`` and the
 quarantine markers).
@@ -53,6 +59,7 @@ from .protocol import ServeClient, ServeError, connect_retry
 from .replicate import (ReplApplier, ReplicationHub, Replicator,
                         bootstrap_state_dir, encode_append, parse_frame)
 from .reseq import resume_reseq, run_reseq
+from .router import HashRing, Router, parse_clusters
 from .state import ReplicationGap, ServeCore, ecv_down, insert_link
 from .wal import WalAppender, create_wal, read_wal, repair_wal
 
@@ -60,6 +67,7 @@ __all__ = [
     "AdmissionController",
     "ClusterConfig",
     "DEFAULT_TENANT",
+    "HashRing",
     "NETFAULT_PLAN_ENV",
     "Overloaded",
     "ReadOnly",
@@ -67,6 +75,7 @@ __all__ = [
     "ReplicationGap",
     "ReplicationHub",
     "Replicator",
+    "Router",
     "SERVE_FAULT_PLAN_ENV",
     "ServeClient",
     "ServeConfig",
@@ -86,6 +95,7 @@ __all__ = [
     "encode_append",
     "find_leader",
     "insert_link",
+    "parse_clusters",
     "parse_frame",
     "parse_netfault_plan",
     "parse_serve_fault_plan",

@@ -1320,20 +1320,54 @@ class ServeDaemon:
 
     def _handle_mig(self, req) -> str:
         """``MIG <op> <tenant> [k=v...]`` — the daemon-side migration
-        surface, which the reference's serve/migrate.py drives from its
-        router.  The routed fleet is not ported: a well-formed request
-        is refused ``ERR unavailable`` naming its queue item, in ASCII
-        (the wire carries nothing else); a malformed one is refused as
-        the reference refuses it."""
-        from .. import unported_ascii
+        surface (serve/migrate.py drives it from the router):
+        ADOPT/CUT/DROP run on the target leader, SEAL/UNSEAL on the
+        source leader, STAT anywhere.  Every op is idempotent — the
+        driver retries through netfaults and kill -9 resumes."""
+        from . import migrate
         if len(req.args) < 2:
             raise BadRequest("MIG wants <op> <tenant> [k=v...]")
         op = req.args[0].upper()
-        parse_kv_args(req.args[2:])
+        name = req.args[1]
+        kv = parse_kv_args(req.args[2:])
         if op not in ("ADOPT", "SEAL", "UNSEAL", "CUT", "DROP", "STAT"):
             raise BadRequest(f"unknown MIG op {op!r}")
-        return err_line("unavailable",
-                        f"MIG {op} {unported_ascii('migrate')}")
+        if op != "STAT" and self.role != "leader":
+            self.counters["notleader"] += 1
+            return err_line("notleader", self.leader_addr())
+        try:
+            if op == "ADOPT":
+                try:
+                    host = kv["host"]
+                    port = int(kv["port"])
+                except (KeyError, ValueError):
+                    raise BadRequest(
+                        "MIG ADOPT wants host=<h> port=<p>")
+                return ok_kv(**migrate.target_adopt(self, name, host,
+                                                    port))
+            if op == "SEAL":
+                dest = kv.get("dest")
+                if not dest:
+                    raise BadRequest("MIG SEAL wants dest=<cluster>")
+                return ok_kv(**migrate.source_seal(self, name, dest))
+            if op == "UNSEAL":
+                return ok_kv(**migrate.source_unseal(self, name))
+            if op == "CUT":
+                try:
+                    epoch = int(kv["epoch"])
+                    expect = int(kv["expect"])
+                except (KeyError, ValueError):
+                    raise BadRequest(
+                        "MIG CUT wants epoch=<int> expect=<seqno>")
+                return ok_kv(**migrate.target_cut(self, name, epoch,
+                                                  expect))
+            if op == "DROP":
+                return ok_kv(**migrate.target_drop(self, name))
+            return ok_kv(**migrate.mig_stat(self, name))
+        except UnknownTenant as exc:
+            return err_line("notfound", exc.message)
+        except migrate.MigrationError as exc:
+            return err_line("unavailable", str(exc))
 
     def _handle_evict(self, req) -> str:
         """``EVICT <tenant>``: seal the tenant to a snapshot generation

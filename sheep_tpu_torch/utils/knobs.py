@@ -301,6 +301,46 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
        "the replication sites (repl/hb), the worker-wire sites "
        "(wleg/wbeat/wart), the migration sites (msnap/mdelta/mcut), "
        "and the re-sequence swap announcement (reseq)"),
+    # -- router ------------------------------------------------------------
+    _K("SHEEP_ROUTE_CLUSTERS", "list", "",
+       "route", "cluster member lists the router hashes tenants "
+       "across"),
+    _K("SHEEP_ROUTE_VNODES", "int", "64",
+       "route", "virtual nodes per cluster on the consistent-hash "
+       "ring"),
+    _K("SHEEP_ROUTE_RID", "str", "adaptive",
+       "route", "rid stamping: always / never / adaptive (writes "
+       "always; reads when recording)"),
+    # -- live migration + rebalancer ---------------------------------------
+    _K("SHEEP_MIGRATE_TIMEOUT_S", "float", "120",
+       "migrate", "per-migration wall budget; past it the driver "
+       "aborts cleanly back to the source (or finishes the remap if "
+       "the cutover already landed)"),
+    _K("SHEEP_MIGRATE_LAG_CUT", "int", "8",
+       "migrate", "delta lag in records at or under which the driver "
+       "enters the epoch-fenced cutover"),
+    _K("SHEEP_MIGRATE_POLL_S", "float", "0.05",
+       "migrate", "driver poll cadence while the delta lag drains"),
+    _K("SHEEP_MIGRATE_RETRIES", "int", "8",
+       "migrate", "wire-leg retry budget per migration RPC (each "
+       "retry is a counted re-dispatch; exhausting it aborts)"),
+    _K("SHEEP_REBALANCE", "flag", "0",
+       "migrate", "router self-rebalancer: watch the fleet scrape and "
+       "live-migrate the busiest tenant off a sustained-hot cluster"),
+    _K("SHEEP_REBALANCE_INTERVAL_S", "float", "5",
+       "migrate", "seconds between rebalancer fleet-scrape verdicts"),
+    _K("SHEEP_REBALANCE_COOLDOWN_S", "float", "30",
+       "migrate", "quiet period after a migration lands before the "
+       "next is considered (anti-flap)"),
+    _K("SHEEP_REBALANCE_HYSTERESIS", "float", "1.5",
+       "migrate", "hot cluster must out-qps the coolest by this "
+       "factor before a move is considered"),
+    _K("SHEEP_REBALANCE_MIN_QPS", "float", "5",
+       "migrate", "below this hot-cluster qps the fleet is quiet and "
+       "every verdict holds"),
+    _K("SHEEP_REBALANCE_PIN", "str", "",
+       "migrate", "pin the rebalancer's pricing verdict: go / stay "
+       "(unset = plan_migration prices the move)"),
     # -- re-sequencing -----------------------------------------------------
     _K("SHEEP_RESEQ", "flag", "1",
        "reseq", "background crash-safe re-sequence when the "

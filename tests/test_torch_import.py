@@ -61,7 +61,11 @@ NEW_MODULES = (
     "sheep_tpu_torch.serve.tenants", "sheep_tpu_torch.serve.worker",
     "sheep_tpu_torch.supervisor.remote", "sheep_tpu_torch.cli.serve",
     "sheep_tpu_torch.cli.worker", "sheep_tpu_torch.scripts.daemon_drive",
-    "sheep_tpu_torch.scripts.remote_drive")
+    "sheep_tpu_torch.scripts.remote_drive",
+    # the routed fleet
+    "sheep_tpu_torch.serve.router", "sheep_tpu_torch.serve.migrate",
+    "sheep_tpu_torch.serve.rebalance", "sheep_tpu_torch.cli.route",
+    "sheep_tpu_torch.cli.top", "sheep_tpu_torch.scripts.fleet_drive")
 
 #: modules a host route imports: none may load torch on import
 TORCH_FREE = (
@@ -95,7 +99,11 @@ TORCH_FREE = (
     "sheep_tpu_torch.serve.tenants", "sheep_tpu_torch.serve.worker",
     "sheep_tpu_torch.supervisor.remote", "sheep_tpu_torch.cli.serve",
     "sheep_tpu_torch.cli.worker", "sheep_tpu_torch.scripts.daemon_drive",
-    "sheep_tpu_torch.scripts.remote_drive")
+    "sheep_tpu_torch.scripts.remote_drive",
+    # the routed fleet
+    "sheep_tpu_torch.serve.router", "sheep_tpu_torch.serve.migrate",
+    "sheep_tpu_torch.serve.rebalance", "sheep_tpu_torch.cli.route",
+    "sheep_tpu_torch.cli.top", "sheep_tpu_torch.scripts.fleet_drive")
 
 
 def _modules():
@@ -190,7 +198,11 @@ def test_lazy_packages_resolve_every_name():
     "sheep_tpu_torch/serve/cluster.py", "sheep_tpu_torch/serve/scrub.py",
     "sheep_tpu_torch/serve/tenants.py", "sheep_tpu_torch/serve/worker.py",
     "sheep_tpu_torch/supervisor/remote.py", "sheep_tpu_torch/cli/serve.py",
-    "sheep_tpu_torch/cli/worker.py"])
+    "sheep_tpu_torch/cli/worker.py",
+    # the routed fleet
+    "sheep_tpu_torch/serve/router.py", "sheep_tpu_torch/serve/migrate.py",
+    "sheep_tpu_torch/serve/rebalance.py", "sheep_tpu_torch/cli/route.py",
+    "sheep_tpu_torch/cli/top.py", "sheep_tpu_torch/scripts/fleet_drive.py"])
 def test_source_imports_no_jax_and_no_sheep_tpu(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -210,37 +222,66 @@ def test_source_imports_no_jax_and_no_sheep_tpu(path):
                 assert not _forbidden(name), f"{fn}: imports {name}"
 
 
-def test_serve_package_exports_only_ported_modules():
-    """The port's ``serve/__init__.py`` imports only the modules that are
-    ported (``state.py``'s ``from . import`` runs it): importing the
-    package loads the daemon, replication, the cluster, scrub and the
-    tenants, exports the daemon's names, and loads and exports nothing of
-    the routed fleet (router, migrate, rebalance)."""
+def _serve_package(pkg: str) -> tuple:
+    """What importing ``pkg.serve`` (with ``state`` and ``reseq``, as
+    ``state.py``'s ``from . import`` runs it) loads: its submodules, and
+    which of the package's public names it exports."""
     prog = ("import sys\n"
-            "import sheep_tpu_torch.serve as s\n"
-            "import sheep_tpu_torch.serve.state, sheep_tpu_torch.serve.reseq\n"
+            f"import {pkg}.serve as s\n"
+            f"import {pkg}.serve.state, {pkg}.serve.reseq\n"
             "print(sorted(k.rsplit('.', 1)[1] for k in sys.modules\n"
-            "             if k.startswith('sheep_tpu_torch.serve.')))\n"
-            "print(sorted(n for n in ('ServeDaemon', 'ServeConfig', "
-            "'Router', 'HashRing', 'parse_clusters', 'ReplicationHub', "
-            "'TenantManager', 'ClusterConfig') if hasattr(s, n)))\n")
+            f"             if k.startswith('{pkg}.serve.')))\n"
+            "print(sorted(s.__all__))\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["JAX_PLATFORMS"] = "cpu"
     out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     loaded, names = out.stdout.splitlines()
-    assert eval(loaded) == ["admission", "cluster", "daemon", "faults",
-                            "netfaults", "protocol", "replicate", "reseq",
-                            "scrub", "state", "tenants", "wal"]
-    assert eval(names) == ["ClusterConfig", "ReplicationHub",
-                           "ServeConfig", "ServeDaemon", "TenantManager"]
-    files = sorted(f for f in os.listdir(os.path.join(PKG, "serve"))
-                   if f.endswith(".py"))
-    assert files == ["__init__.py", "admission.py", "cluster.py",
-                     "daemon.py", "faults.py", "netfaults.py",
-                     "protocol.py", "replicate.py", "reseq.py", "scrub.py",
-                     "state.py", "tenants.py", "wal.py", "worker.py"]
+    return eval(loaded), eval(names)
+
+
+def test_serve_package_exports_only_ported_modules():
+    """The port's ``serve/__init__.py`` loads the same submodules as the
+    reference's (the router with them, and not the migration or the
+    rebalancer, which the router loads when it first needs them), exports
+    every name the reference's exports (the port adds ``run_reseq`` and
+    ``resume_reseq``), and ``serve/`` holds the reference's files."""
+    ref_loaded, ref_names = _serve_package("sheep_tpu")
+    loaded, names = _serve_package("sheep_tpu_torch")
+    assert loaded == ref_loaded
+    assert "router" in loaded and "migrate" not in loaded
+    assert set(names) - set(ref_names) == {"resume_reseq", "run_reseq"}
+    assert set(ref_names) <= set(names)
+    files = lambda pkg: sorted(  # noqa: E731
+        f for f in os.listdir(os.path.join(REPO, pkg, "serve"))
+        if f.endswith(".py"))
+    assert files("sheep_tpu_torch") == files("sheep_tpu")
+
+
+def test_port_has_every_reference_module_but_the_jax_shim():
+    """Every module of the reference has its counterpart in the port,
+    but ``utils/compat.py`` (a jax ``shard_map`` shim; the port's
+    ``parallel.mesh.Mesh`` does its job) and ``ops/pallas_jump.py`` (K1's
+    Pallas wrapper, whose counterpart is ``ops/fused_jump.py`` over
+    ``csrc/fused_jump.cu``), and nothing in the port names a module as
+    not ported."""
+    def tree(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(r, f), root)
+                for r, _, fs in os.walk(root) for f in fs
+                if f.endswith(".py") and "__pycache__" not in r}
+    assert tree("sheep_tpu") - tree("sheep_tpu_torch") == \
+        {os.path.join("utils", "compat.py"),
+         os.path.join("ops", "pallas_jump.py")}
+    assert os.path.join("ops", "fused_jump.py") in tree("sheep_tpu_torch")
+    pattern = re.compile(r"unported|QUEUE")
+    for root, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                text = open(os.path.join(root, fn)).read()
+                assert not pattern.search(text), fn
 
 
 def test_source_names_no_reference_tool_to_run():

@@ -1,9 +1,11 @@
 """Anti-entropy (port of sheep_tpu/serve/scrub.py, plan_scrub and the
 daemon's VERIFY, SCRUB and CORRUPT paths) against the reference's.
 
-Every test of tests/test_scrub.py but the two of the router (which wait
-for the routed fleet, ROADMAP.md §1) runs twice in one directory: as the
-reference wrote it, then rebound to the port (tests/torch_twin.py).
+Every test of tests/test_scrub.py (the router's two among them: a
+diverged member pushed to the back of the read spread, and reads
+through the router skipping a quarantined member) runs twice in one
+directory: as the reference wrote it, then rebound to the port
+(tests/torch_twin.py).
 The reference's assertions hold on the port, and what both runs leave
 is equal: the state dirs' ``.wal``/``.snap`` bytes, the quarantined and
 repaired artifacts, and fsck's verdicts on each state dir."""
@@ -16,9 +18,6 @@ import test_scrub as S
 from torch_twin import (assert_same, cases, clear_fault_plans, dir_bytes,
                         run_twin)
 
-#: need the routed fleet's router (ROADMAP.md §1 item 1)
-FLEET = ("test_read_targets_push_diverged_to_back",
-         "test_router_skips_quarantined_member")
 KEPT = (".wal", ".snap", ".sum", ".quarantined", ".tre", ".seq", ".hist")
 
 
@@ -45,8 +44,8 @@ def observe(work, side):
     return out
 
 
-@pytest.mark.parametrize("name,params", [c[1:] for c in cases(S, FLEET)],
-                         ids=[c[0] for c in cases(S, FLEET)])
+@pytest.mark.parametrize("name,params", [c[1:] for c in cases(S)],
+                         ids=[c[0] for c in cases(S)])
 def test_scrub_twin(tmp_path, monkeypatch, name, params):
     assert_same(run_twin(getattr(S, name), tmp_path, monkeypatch, observe,
                          params=params, before=clear_fault_plans))

@@ -11,8 +11,7 @@ rebound to the port (tests/torch_twin.py).  The reference's assertions
 hold on the port, and the state dirs both runs leave hold equal
 ``.wal`` and ``.snap`` bytes.  A scripted session sends the same
 requests to a daemon of each package and compares every response line,
-clock fields masked; the port refuses the ``MIG`` verb in ASCII, naming
-the queue item it waits for."""
+clock fields masked, the ``MIG`` verb's every op among them."""
 
 import contextlib
 import importlib
@@ -139,7 +138,7 @@ def masked(line: str, addr: str) -> str:
     return " ".join(toks)
 
 
-#: one session's requests (the MIG verbs last: the port refuses them)
+#: one session's requests
 SESSION = [
     "PING", "PART 0 1 2 3 1000000", "PARENT 0 1 2 99999",
     "INSERT 2 9 3 7", "INSERT 1 1", "INSERT 140 150 5 6",
@@ -148,8 +147,19 @@ SESSION = [
     "DEADLINE=0 PART 1", "TENANT", "TENANT nosuch", "EVICT",
     "INSERT 4 8", "STATS", "CRC", "MIG", "MIG BOGUS t",
 ]
-MIG = ["MIG STAT default", "MIG ADOPT t host=127.0.0.1 port=1",
-       "MIG SEAL default dest=c1"]
+#: the migration verb's every op on one daemon (no router): the source
+#: side's fence and its lifting, a target side whose source is
+#: unreachable, the cutover's refusals, and the malformed forms
+MIG = ["MIG STAT default", "MIG STAT nosuch",
+       "MIG ADOPT t host=127.0.0.1 port=1", "MIG ADOPT t",
+       "MIG ADOPT t host=127.0.0.1 port=x", "MIG STAT t",
+       "MIG SEAL default", "MIG SEAL default dest=c1", "INSERT 1 2",
+       "PART 0 1", "MIG STAT default", "MIG SEAL default dest=c1",
+       "MIG UNSEAL default", "MIG UNSEAL default", "INSERT 1 2",
+       "MIG CUT default", "MIG CUT default epoch=1 expect=0",
+       "MIG CUT t epoch=x expect=0", "MIG DROP t", "MIG DROP t",
+       "MIG DROP nosuch", "MIG UNSEAL nosuch", "MIG STAT default",
+       "MIG", "MIG X t", "PING"]
 
 
 def _session(side, work, lines):
@@ -180,28 +190,31 @@ def _session(side, work, lines):
 def test_session_responses_equal_reference(tmp_path):
     """Every response line of one session, clock fields masked, and the
     state dir it leaves, equal the reference daemon's."""
-    got = {side: _session(side, tmp_path / "w", SESSION) for side in PKGS}
+    got = {side: _session(side, tmp_path / "w", SESSION + MIG)
+           for side in PKGS}
     assert got["port"][0] == got["ref"][0]
     assert got["port"][1] == got["ref"][1]
 
 
-def test_mig_refused_in_ascii_naming_the_fleet_item(tmp_path):
-    """The routed fleet is not ported: every well-formed ``MIG`` answers
-    ``ERR unavailable`` in ASCII naming its queue item, the connection
-    stays usable, and a malformed one is refused as the reference
-    refuses it."""
-    from sheep_tpu_torch import QUEUE
-    resp, _ = _session("port", tmp_path / "w", [*MIG, "PING"])
-    for line, req in zip(resp, MIG):
-        assert line.isascii()
-        assert line.startswith(f"ERR unavailable MIG {req.split()[1]} "), \
-            line
-        assert QUEUE["migrate"] in line and "ROADMAP.md section 1" in line
+def test_mig_ops_answer_as_the_reference(tmp_path):
+    """Every ``MIG`` op (ADOPT, SEAL, UNSEAL, CUT, DROP, STAT; well
+    formed, malformed, on unknown tenants) answers as the reference
+    daemon answers, in ASCII, on a connection that stays usable, and the
+    state dir each leaves (the fence's marker and the adopted tenant's
+    registry among it) holds the same bytes."""
+    got = {}
+    for side in PKGS:
+        resp, state = _session(side, tmp_path / "w", MIG)
+        names = sorted(n for n in os.listdir(tmp_path / "w" / "sd")
+                       if not n.startswith(("serve.status", "serve.hb",
+                                            "serve.addr")))
+        got[side] = (resp, state, names)
+    assert got["port"] == got["ref"]
+    resp = got["port"][0]
+    assert all(line.isascii() for line in resp)
     assert resp[-1] == "OK pong"
-    bad = {side: _session(side, tmp_path / "w", ["MIG", "MIG X t"])[0]
-           for side in PKGS}
-    assert bad["port"] == bad["ref"]
-    assert all(r.startswith("ERR badreq") for r in bad["port"])
+    assert any(line.startswith("ERR moved") for line in resp)
+    assert sum(line.startswith("ERR badreq") for line in resp) >= 5
 
 
 def test_daemon_drive_runs_a_cluster_end_to_end(tmp_path):

@@ -1,9 +1,9 @@
 """The remote build workers (port of sheep_tpu/serve/worker.py,
 supervisor/remote.py and the distext ship arm) against the reference's.
 
-Every test of tests/test_worker.py but the ``top`` view's (which waits
-for the routed fleet, ROADMAP.md §1) runs twice in one directory: as
-the reference wrote it, then rebound to the port (tests/torch_twin.py),
+Every test of tests/test_worker.py (the workers' METRICS scrape and
+``top``'s view of them among them) runs twice in one directory: as the
+reference wrote it, then rebound to the port (tests/torch_twin.py),
 each side with worker daemons of its own package.  The reference's
 assertions hold on the port (trees equal to the oracle, exact dispatch
 counts under every netfault and chaos plan), and the trees, histograms
@@ -22,8 +22,6 @@ from torch_twin import (assert_same, cases, clear_fault_plans, dir_bytes,
                         port_twin, run_twin)
 
 PKGS = {"ref": "sheep_tpu", "port": "sheep_tpu_torch"}
-#: needs ``top`` (the routed fleet, ROADMAP.md §1 item 1)
-FLEET = ("test_worker_metrics_scrape_and_top_view",)
 #: what the worker fixtures' env clearing covers (tests/test_worker.py)
 ENV = ("SHEEP_EXT_BLOCK", "SHEEP_EXT_STRATEGY", "SHEEP_MEM_BUDGET",
        "SHEEP_DISK_BUDGET", "SHEEP_IO_FAULT_PLAN", "SHEEP_FAULT_PLAN",
@@ -95,8 +93,8 @@ def observe(work, side):
     return out
 
 
-@pytest.mark.parametrize("name,params", [c[1:] for c in cases(W, FLEET)],
-                         ids=[c[0] for c in cases(W, FLEET)])
+@pytest.mark.parametrize("name,params", [c[1:] for c in cases(W)],
+                         ids=[c[0] for c in cases(W)])
 def test_worker_twin(tmp_path, monkeypatch, graph, name, params):
     assert_same(run_twin(getattr(W, name), tmp_path, monkeypatch, observe,
                          fixtures=fixtures(graph), params=params,

@@ -2,7 +2,8 @@
 hold what both runs leave behind equal.
 
 ``port_twin(fn)`` rebinds a test function of a reference test module
-(and every helper of that module it reaches) to the port: each global
+(and every helper function and class of that module it reaches) to the
+port: each global
 that is a module, class or function of ``sheep_tpu`` becomes the port's
 object of the same name, and an ``import sheep_tpu...`` statement run
 inside the body imports ``sheep_tpu_torch...`` instead.  The reference's
@@ -98,11 +99,33 @@ def port_globals(module: types.ModuleType, overrides: dict | None = None):
         g[key] = to_port(value)
     g["__builtins__"] = _BUILTINS
     for key, value in list(g.items()):
-        if isinstance(value, types.FunctionType) \
-                and value.__module__ == module.__name__:
+        if getattr(value, "__module__", None) != module.__name__:
+            continue
+        if isinstance(value, types.FunctionType):
             g[key] = _rebind(value, g)
+        elif isinstance(value, type):
+            g[key] = _rebind_class(value, g)
     g.update(overrides or {})
     return g
+
+
+def _rebind_class(cls, g: dict):
+    """A copy of a class the test module defines (a fixture-like helper
+    holding daemons and clients) whose methods run in ``g``."""
+    ns = {}
+    for key, value in vars(cls).items():
+        if key in ("__dict__", "__weakref__"):
+            continue
+        if isinstance(value, types.FunctionType):
+            value = _rebind(value, g)
+        elif isinstance(value, (staticmethod, classmethod)):
+            value = type(value)(_rebind(value.__func__, g))
+        elif isinstance(value, property):
+            value = property(*(f and _rebind(f, g) for f in
+                               (value.fget, value.fset, value.fdel)))
+        ns[key] = value
+    bases = tuple(to_port(b) for b in cls.__bases__)
+    return type(cls)(cls.__name__, bases, ns)
 
 
 def _rebind(fn, g: dict):
