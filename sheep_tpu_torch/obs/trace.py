@@ -31,6 +31,16 @@ a recorder — a subprocess inheriting ``SHEEP_TRACE`` appends its own
 ``meta`` segment to the same file (append mode), which readers treat as
 a new segment.
 
+A second sink keeps spans in memory: inside :func:`capture` every span
+is enabled, with or without ``SHEEP_TRACE``, and lands in the capture's
+list as a :class:`CapturedSpan` (name, ids, thread, ``perf_counter``
+start and end, attributes).  While ``torch``'s profiler records, an
+enabled span also opens ``torch.profiler.record_function(<name>)``, so
+the program's spans sit in the device trace on the profiler's own clock
+and every kernel or copy launched inside one correlates to it.  ``torch``
+is consulted only when it is loaded already: this module imports
+without it.
+
 The shared overlap accounting lives here too (:func:`overlap_stats`).
 """
 
@@ -42,9 +52,11 @@ import itertools
 import json
 import os
 import re
+import sys
 import threading
 import time
 import warnings
+from typing import NamedTuple
 
 ENV = "SHEEP_TRACE"
 TRACE_SUFFIX = ".trace"
@@ -188,15 +200,80 @@ def _json_safe(v):
     return str(v)
 
 
+class CapturedSpan(NamedTuple):
+    """One span as :func:`capture` keeps it.  ``tid`` and ``native`` are
+    its thread's ``threading.get_ident()`` and ``get_native_id()``;
+    ``start`` and ``end`` are ``time.perf_counter()`` seconds."""
+
+    name: str
+    id: int
+    par: int | None
+    tid: int
+    native: int
+    start: float
+    end: float
+    attrs: dict
+
+    @property
+    def dur(self) -> float:
+        return self.end - self.start
+
+
+class Capture:
+    """The in-memory sink (``with capture() as cap: ...; cap.spans``):
+    while entered, every span of every thread is enabled and appended to
+    :attr:`spans` when it ends.  Captures nest and may run beside
+    ``SHEEP_TRACE``; each keeps the spans that began inside it."""
+
+    def __init__(self):
+        self.spans: list[CapturedSpan] = []
+
+    def named(self, name: str) -> list[CapturedSpan]:
+        return [sp for sp in self.spans if sp.name == name]
+
+    def __enter__(self) -> "Capture":
+        global _captures
+        with _capture_lock:
+            _captures = _captures + (self,)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _captures
+        with _capture_lock:
+            _captures = tuple(c for c in _captures if c is not self)
+        return False
+
+
+_captures: tuple = ()
+_capture_lock = threading.Lock()
+
+
+capture = Capture
+
+
+def _profiler_range(name: str):
+    """``record_function(name)``, entered, while torch's profiler records
+    on this thread; else None.  torch is not imported here."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _Span:
-    """One live span (enabled mode).  Created by TraceRecorder.span."""
+    """One live span (enabled mode).  ``rec`` ids and nests it: the file
+    recorder, or :data:`_UNFILED` for a span that only captures keep."""
 
-    __slots__ = ("rec", "name", "attrs", "id", "par", "t0", "rid")
+    __slots__ = ("rec", "name", "attrs", "caps", "id", "par", "t0", "t1",
+                 "rid", "prof")
 
-    def __init__(self, rec: "TraceRecorder", name: str, attrs: dict):
+    def __init__(self, rec, name: str, attrs: dict, caps: tuple = ()):
         self.rec = rec
         self.name = name
         self.attrs = attrs
+        self.caps = caps
 
     def annotate(self, **attrs) -> None:
         self.attrs.update(attrs)
@@ -211,11 +288,14 @@ class _Span:
         self.id = rec._next_id()
         self.rid = current_rid()
         stack.append(self)
+        self.prof = _profiler_range(self.name)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
-        t1 = time.perf_counter()
+        t1 = self.t1 = time.perf_counter()
+        if self.prof is not None:
+            self.prof.__exit__(*exc)
         rec = self.rec
         stack = rec._tl.stack
         # tolerate a mispaired exit (a span abandoned by an exception in
@@ -225,7 +305,32 @@ class _Span:
         if stack:
             stack.pop()
         rec._write_span(self, self.t0, t1 - self.t0)
+        if self.caps:
+            kept = CapturedSpan(self.name, self.id, self.par,
+                                threading.get_ident(),
+                                threading.get_native_id(), self.t0, t1,
+                                dict(self.attrs))
+            for cap in self.caps:
+                cap.spans.append(kept)
         return False
+
+
+class _Unfiled:
+    """Ids and nesting for spans that no file records (a capture without
+    ``SHEEP_TRACE``)."""
+
+    def __init__(self):
+        self._tl = threading.local()
+        self._ids = itertools.count(1)
+
+    def _next_id(self) -> int:
+        return next(self._ids)
+
+    def _write_span(self, sp: "_Span", t0: float, dur: float) -> None:
+        pass
+
+
+_UNFILED = _Unfiled()
 
 
 class TraceRecorder:
@@ -348,7 +453,7 @@ class TraceRecorder:
         return seg
 
     def span(self, name: str, attrs: dict) -> _Span:
-        return _Span(self, name, attrs)
+        return _Span(self, name, attrs, _captures)
 
     def event(self, name: str, attrs: dict) -> None:
         stack = getattr(self._tl, "stack", None)
@@ -459,14 +564,24 @@ def enabled() -> bool:
     return _current() is not None
 
 
+def _span_owner():
+    """The recorder that ids and nests an enabled span, or None when
+    spans are off (no ``SHEEP_TRACE``, no capture)."""
+    rec = _current()
+    if rec is None and _captures:
+        return _UNFILED
+    return rec
+
+
 def span(name: str, **attrs):
     """A context manager timing one phase.  Disabled: the shared no-op
     singleton (identity-stable, allocation-free).  Enabled: a span line
-    with hierarchical parent/thread ids lands at exit."""
-    rec = _current()
+    with hierarchical parent/thread ids lands at exit, in the file and
+    in each open :func:`capture`."""
+    rec = _span_owner()
     if rec is None:
         return NOOP_SPAN
-    return rec.span(name, attrs)
+    return _Span(rec, name, attrs, _captures)
 
 
 def event(name: str, **attrs) -> None:
@@ -529,7 +644,7 @@ def sampled_span(name: str, **attrs):
     exist under load, cheap enough to leave on.  Disabled tracing or a
     skipped sample returns the shared no-op singleton; a recorded span
     carries ``sample=N`` so readers can re-scale counts."""
-    rec = _current()
+    rec = _span_owner()
     if rec is None:
         return NOOP_SPAN
     global _sample_countdown
@@ -546,27 +661,41 @@ def sampled_span(name: str, **attrs):
         if c % n:
             return NOOP_SPAN
         attrs["sample"] = n
-    return rec.span(name, attrs)
+    return _Span(rec, name, attrs, _captures)
 
 
-@contextlib.contextmanager
-def timed(name: str, out: list | None = None, **attrs):
+class timed:
     """:func:`span` that ALWAYS measures: appends the phase's seconds to
-    ``out`` (when given) whether or not tracing is enabled.  THE one
-    accumulation path for every perf-dict phase series that predates the
-    recorder (window_fetch_s / window_fold_s, ext read/fold, prefetch
-    busy time) — the legacy record keys are views of these lists now."""
-    t0 = time.perf_counter()
-    with span(name, **attrs):
-        yield
-    if out is not None:
-        out.append(time.perf_counter() - t0)
+    ``out`` (when given) whether or not tracing is enabled, the span's
+    own duration when it is enabled.  THE one accumulation path for
+    every perf-dict phase series that predates the recorder (the build
+    path's layer timers, window_fold_s, ext read/fold, prefetch busy
+    time) — the legacy record keys are views of these lists now.  A
+    block that raises appends nothing."""
+
+    __slots__ = ("out", "sp", "t0")
+
+    def __init__(self, name: str, out: list | None = None, **attrs):
+        self.out = out
+        self.sp = span(name, **attrs)
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self.sp.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        sp = self.sp
+        sp.__exit__(*exc)
+        if self.out is not None and exc[0] is None:
+            self.out.append(sp.t1 - sp.t0 if sp is not NOOP_SPAN
+                            else time.perf_counter() - self.t0)
+        return False
 
 
 def annotate(**attrs) -> None:
     """Merge attributes into the current thread's innermost open span
     (no-op when tracing is disabled or no span is open)."""
-    rec = _current()
+    rec = _span_owner()
     if rec is None:
         return
     stack = getattr(rec._tl, "stack", None)

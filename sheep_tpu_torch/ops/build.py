@@ -39,7 +39,6 @@ their meanings.
 from __future__ import annotations
 
 import bisect
-import contextlib
 import os
 import threading
 import time
@@ -50,6 +49,8 @@ import torch
 from .. import resolve_device
 from ..convert import edges_to_device
 from ..core.forest import Forest
+from ..obs import trace as obs
+from . import forest as _forest
 from .forest import (_i32, _np, _to_forest, forest_fixpoint,
                      forest_fixpoint_hosted, pack_links_6b,
                      parent_from_links, pst_weights, reduce_links_hosted,
@@ -127,28 +128,33 @@ def _host_seq_pst(tail_np: np.ndarray, head_np: np.ndarray, n: int,
     record at its earlier-in-sequence endpoint, absent heads included).
     A given ``seq`` replaces the degree sort (the native fused sort of
     ``core.sequence``).  Block-wise gathers keep the peak at a few int
-    arrays of one block.  ``perf`` receives prefetch_seq_s (the order)
-    and prefetch_pst_s (the numpy pst pass)."""
+    arrays of one block.  ``perf`` receives prefetch_seq_s (the order,
+    span ``build.prefetch.seq``) and prefetch_pst_s (the numpy pst pass,
+    span ``build.prefetch.pst``)."""
     from ..core.sequence import degree_sequence, sequence_positions
 
-    t0 = time.perf_counter()
-    seq_h = degree_sequence(tail_np, head_np, n) if seq is None \
-        else np.asarray(seq, dtype=np.uint32)
-    t1 = time.perf_counter()
-    pos = sequence_positions(seq_h, n - 1)
-    pst = np.zeros(n, np.int64)
-    block = 1 << 24
-    for s in range(0, len(tail_np), block):
-        # absent vids carry INVALID (0xFFFFFFFF) >= n, so min() picks the
-        # present endpoint and the lo < n filter drops both-absent pairs
-        pt = pos[tail_np[s:s + block]].astype(np.int64)
-        ph = pos[head_np[s:s + block]].astype(np.int64)
-        lo = np.minimum(pt, ph)
-        live = (pt != ph) & (lo < n)
-        pst += np.bincount(lo[live], minlength=n)[:n]
+    seq_s: list = []
+    pst_s: list = []
+    records = len(tail_np)
+    with obs.timed("build.prefetch.seq", seq_s, records=records):
+        seq_h = degree_sequence(tail_np, head_np, n) if seq is None \
+            else np.asarray(seq, dtype=np.uint32)
+    with obs.timed("build.prefetch.pst", pst_s, records=records):
+        pos = sequence_positions(seq_h, n - 1)
+        pst = np.zeros(n, np.int64)
+        block = 1 << 24
+        for s in range(0, records, block):
+            # absent vids carry INVALID (0xFFFFFFFF) >= n, so min() picks
+            # the present endpoint and the lo < n filter drops both-absent
+            # pairs
+            pt = pos[tail_np[s:s + block]].astype(np.int64)
+            ph = pos[head_np[s:s + block]].astype(np.int64)
+            lo = np.minimum(pt, ph)
+            live = (pt != ph) & (lo < n)
+            pst += np.bincount(lo[live], minlength=n)[:n]
     if perf is not None:
-        perf["prefetch_seq_s"] = round(t1 - t0, 4)
-        perf["prefetch_pst_s"] = round(time.perf_counter() - t1, 4)
+        perf["prefetch_seq_s"] = round(seq_s[0], 4)
+        perf["prefetch_pst_s"] = round(pst_s[0], 4)
     return seq_h, pst.astype(np.uint32)
 
 
@@ -172,12 +178,15 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     rounds, live, fetch_tail_s, handoff_links, packed_handoff, fold_s,
     pst_wait_s, prefetch_s (the seq/pst prefetch thread's own time, when
     it runs; prefetch_seq_s and prefetch_pst_s split it when it
-    recomputes them from the host edges), fetch_windows and, from the streamed tail, stream_mode,
-    window_fetch_s, window_fold_s, window_fetch_phases, overlap_s and
-    overlap_frac, or, from the serial arm's speculative snapshot,
+    recomputes them from the host edges), k1_bytes, fetch_windows and,
+    from the streamed tail, stream_mode, window_fetch_s, window_fold_s,
+    unpack_s, overlap_s and overlap_frac, or, from the serial arm's
+    speculative snapshot,
     overlap, spec_starts, spec_restarts, spec_wasted_mb,
     spec_stopped_loop, spec_mode, spec_start_live and spec_fetch_phases
-    (:func:`fetch_phases`).
+    (:func:`fetch_phases`).  Spans (``obs.trace``): ``build.prep`` (the
+    upload and the link mapping), ``build.prefetch`` on the prefetch
+    thread, then the loop and the tail's (:func:`reduce_and_finish_native`).
     """
     device = resolve_device(device)
     if handoff_factor is None:
@@ -196,43 +205,44 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
         # replaces the 2n*4B seq/pst fetch; under the CPU's streamed
         # immediate handoff it feeds the host-seq prep below
         host_edges = (tail, head)
-    t, h = _device_edges(tail, head, device)
-    given_seq = None
-    _lazy_pst = None
-    acc_ok = False  # may the tail fold count pst from its own links?
-    if seq is None and host_edges is not None and host_seq_mode(device) \
-            and streamed_cpu:
-        # host-seq prep: the degree sequence on the host up front, so the
-        # device maps links only.  Every active vid is in it, so no
-        # pst-only link is masked out and the fold may count pst itself
-        from ..core.sequence import degree_sequence
-        seq = degree_sequence(host_edges[0], host_edges[1], n)
-        acc_ok = True
-    if seq is not None:
-        # given order: no histogram, no device sort
-        given_seq = np.asarray(seq, dtype=np.uint32)
-        lo, hi, pst = given_seq_links(t, h, given_seq, n,
-                                      with_pst=host_edges is None)
-        m = len(given_seq)
-        dev_seq = None
-        if pst is None:
-            # pst counts the pre-dead-mask lo, so the rare prefetch
-            # failure reruns the mapping with the scatter included
-            def _lazy_pst():
-                return given_seq_links(t, h, given_seq, n)[2]
-    else:
-        # the device pst scatter is skipped where the host recomputes pst
-        # or the streamed immediate-handoff fold counts it
-        dev_seq, _, m, lo, hi, pst = prepare_links(
-            t, h, n, with_pst=host_edges is None and not streamed_cpu)
-        # full-graph prep: every vid holds a position, so no pst-only
-        # link is masked out
-        acc_ok = True
-        if pst is None:
-            orig_lo = lo
+    with obs.span("build.prep", records=len(tail), n=n):
+        t, h = _device_edges(tail, head, device)
+        given_seq = None
+        _lazy_pst = None
+        acc_ok = False  # may the tail fold count pst from its own links?
+        if seq is None and host_edges is not None and host_seq_mode(device) \
+                and streamed_cpu:
+            # host-seq prep: the degree sequence on the host up front, so the
+            # device maps links only.  Every active vid is in it, so no
+            # pst-only link is masked out and the fold may count pst itself
+            from ..core.sequence import degree_sequence
+            seq = degree_sequence(host_edges[0], host_edges[1], n)
+            acc_ok = True
+        if seq is not None:
+            # given order: no histogram, no device sort
+            given_seq = np.asarray(seq, dtype=np.uint32)
+            lo, hi, pst = given_seq_links(t, h, given_seq, n,
+                                          with_pst=host_edges is None)
+            m = len(given_seq)
+            dev_seq = None
+            if pst is None:
+                # pst counts the pre-dead-mask lo, so the rare prefetch
+                # failure reruns the mapping with the scatter included
+                def _lazy_pst():
+                    return given_seq_links(t, h, given_seq, n)[2]
+        else:
+            # the device pst scatter is skipped where the host recomputes pst
+            # or the streamed immediate-handoff fold counts it
+            dev_seq, _, m, lo, hi, pst = prepare_links(
+                t, h, n, with_pst=host_edges is None and not streamed_cpu)
+            # full-graph prep: every vid holds a position, so no pst-only
+            # link is masked out
+            acc_ok = True
+            if pst is None:
+                orig_lo = lo
 
-            def _lazy_pst():
-                return pst_weights(orig_lo, n)
+                def _lazy_pst():
+                    return pst_weights(orig_lo, n)
     seq = given_seq if given_seq is not None else dev_seq
     # seq/pst overlap the reduce rounds on a second thread: recomputed
     # from the host edge copy, or fetched from the device
@@ -245,21 +255,22 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
         fetched = {"seq": given_seq, "m": len(given_seq)}
     else:
         def _prefetch():
-            t0 = time.perf_counter()
-            try:
-                if host_edges is not None:
-                    t_np, h_np = host_edges
-                    fetched["seq"], fetched["pst"] = _host_seq_pst(
-                        t_np, h_np, n, seq=given_seq, perf=perf)
-                    fetched["m"] = len(fetched["seq"])
-                else:
-                    fetched["seq"] = _np(seq)
-                    if pst is not None:
-                        fetched["pst"] = _np(pst)
-            except Exception:  # fall back to the synchronous fetch below
-                fetched.clear()
+            took: list = []
+            with obs.timed("build.prefetch", took):
+                try:
+                    if host_edges is not None:
+                        t_np, h_np = host_edges
+                        fetched["seq"], fetched["pst"] = _host_seq_pst(
+                            t_np, h_np, n, seq=given_seq, perf=perf)
+                        fetched["m"] = len(fetched["seq"])
+                    else:
+                        fetched["seq"] = _np(seq)
+                        if pst is not None:
+                            fetched["pst"] = _np(pst)
+                except Exception:  # fall back to the synchronous fetch below
+                    fetched.clear()
             if perf is not None:
-                perf["prefetch_s"] = round(time.perf_counter() - t0, 4)
+                perf["prefetch_s"] = round(took[0], 4)
 
         pre = threading.Thread(target=_prefetch, daemon=True)
         pre.start()
@@ -382,28 +393,6 @@ def fetch_links_host(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int):
     return lo_h[keep], hi_h[keep], packed
 
 
-@contextlib.contextmanager
-def _timed(out: list):
-    """Append the block's seconds to ``out`` when it completes (the
-    arithmetic of the reference's obs.trace.timed, without its span
-    recorder)."""
-    t0 = time.perf_counter()
-    yield
-    out.append(time.perf_counter() - t0)
-
-
-def overlap_stats(serialized_s: float, wall_s: float) -> dict:
-    """Realized overlap of concurrent phases: ``serialized_s`` is their
-    summed cost, ``wall_s`` what the clock saw (the reference's
-    obs.trace.overlap_stats)."""
-    overlap = max(0.0, serialized_s - wall_s)
-    return {
-        "overlap_s": round(overlap, 4),
-        "overlap_frac": round(overlap / serialized_s, 4)
-        if serialized_s > 0 else 0.0,
-    }
-
-
 def _slice_rows(buf: torch.Tensor, start: int, length: int) -> torch.Tensor:
     """The fixed-length row slice [start, start + length) of a device
     buffer (a view)."""
@@ -496,13 +485,15 @@ class _StreamFetcher:
         self.failed = False
         self.error: Exception | None = None  # what ended the thread
         self._slice_s: list = []  # per-slice fetch seconds
+        self.unpack_s: list = []  # per-collect unpack seconds
         self.phases = fetch_phases()
         self._abort = False
         self._slices: list = []
-        if self.packed:
-            self._dev = (pack_links_6b(lo, hi),)
-        else:
-            self._dev = (_i32(lo).contiguous(), _i32(hi).contiguous())
+        with obs.span("handoff.sort"):
+            if self.packed:
+                self._dev = (pack_links_6b(lo, hi),)
+            else:
+                self._dev = (_i32(lo).contiguous(), _i32(hi).contiguous())
         self._device = lo.device
         self._ready = None
         if self._device.type == "cuda":
@@ -550,11 +541,13 @@ class _StreamFetcher:
             if self._abort:
                 return
             start = i * self.slice_len
-            with _timed(self._slice_s):
+            with obs.timed("handoff.slice", self._slice_s) as sp:
                 got = _to_host([_slice_rows(buf, start, self.slice_len)
                                 for buf in self._dev], side, self.phases)
+                nbytes = sum(a.nbytes for a in got)
+                sp.annotate(bytes=nbytes)
             self.phases["slices"] += 1
-            self.phases["bytes"] += sum(a.nbytes for a in got)
+            self.phases["bytes"] += nbytes
             self.phases["busy_s"] += self._slice_s[-1]
             self._slices.append(got[0] if self.packed else tuple(got))
             self.done_slices = i + 1
@@ -589,10 +582,14 @@ class _StreamFetcher:
     def _unpack(self, part: list):
         if not part:
             return np.empty(0, np.int32), np.empty(0, np.int32)
-        if self.packed:
-            return unpack_links_6b(np.concatenate(part))
-        los, his = zip(*part)
-        return np.concatenate(los), np.concatenate(his)
+        with obs.timed("handoff.unpack", self.unpack_s) as sp:
+            if self.packed:
+                lo_h, hi_h = unpack_links_6b(np.concatenate(part))
+            else:
+                los, his = zip(*part)
+                lo_h, hi_h = np.concatenate(los), np.concatenate(his)
+            sp.annotate(links=len(lo_h))
+        return lo_h, hi_h
 
     def collect(self) -> tuple[np.ndarray, np.ndarray]:
         """Host (lo, hi) of every fetched slice (unfiltered: dead
@@ -718,7 +715,8 @@ def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
     links_folded = 0
     try:
         if device_windows:
-            slo, shi = sort_links_by_hi(lo, hi)
+            with obs.span("handoff.sort"):
+                slo, shi = sort_links_by_hi(lo, hi)
             slice_links = int(os.environ.get("SHEEP_OVERLAP_SLICE",
                                              str(1 << 18)))
             stream = _WindowStream(slo, shi, n, live, slice_links, w)
@@ -750,20 +748,23 @@ def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
         it = windows_iter()
         pst_arr = None
         if not accumulate:
-            t0 = time.perf_counter()
-            pst_arr = _as_u32(pst_h() if callable(pst_h) else pst_h)
-            pst_wait_s = time.perf_counter() - t0
+            waited: list = []
+            with obs.timed("handoff.pst_wait", waited):
+                pst_arr = _as_u32(pst_h() if callable(pst_h) else pst_h)
+            pst_wait_s = waited[0]
         fold = links_fold(n, pst_arr)
         for _ in range(w):
-            with _timed(fetch_s):
-                wlo, whi = next(it)
-                keep = wlo < n
-                if not keep.all():
-                    wlo, whi = wlo[keep], whi[keep]
-            with _timed(fold_s):
+            t0 = time.perf_counter()
+            wlo, whi = next(it)
+            keep = wlo < n
+            if not keep.all():
+                wlo, whi = wlo[keep], whi[keep]
+            fetch_s.append(time.perf_counter() - t0)
+            with obs.timed("handoff.fold", fold_s, links=len(wlo)):
                 fold.block(_as_u32(wlo), _as_u32(whi))
             links_folded += len(wlo)
         parent, pst_out = fold.finish()
+        obs.annotate(windows=w, links=links_folded)  # on handoff.tail
     except Exception as exc:
         if stream is not None:
             stream.abort()
@@ -780,13 +781,13 @@ def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
             "window_fold_s": [round(x, 4) for x in fold_s],
             "fold_s": round(sum(fold_s), 4),
             "pst_wait_s": round(pst_wait_s, 4),
-            **overlap_stats(fetch_busy + sum(fold_s), wall),
+            **obs.overlap_stats(fetch_busy + sum(fold_s), wall),
             "handoff_links": links_folded,
             "packed_handoff": stream.packed if stream is not None
             else False,
+            "unpack_s": round(sum(stream.unpack_s), 4)
+            if stream is not None else 0.0,
         })
-        if stream is not None:
-            perf["window_fetch_phases"] = merge_phases([stream.phases])
     return parent, pst_out
 
 
@@ -962,15 +963,10 @@ def reduce_and_fetch_links(lo, hi, n: int, stop_live: int,
     spec_mode, spec_start_live) and ``spec_fetch_phases``, its fetch
     threads' :func:`fetch_phases` summed."""
     spec = _SpecHandoff.maybe(n, lo.device)
-    t0 = time.perf_counter()
-    lo, hi, live, rounds, converged = reduce_links_hosted(
-        lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
+    lo, hi, live, rounds, converged = _hosted_loop(
+        lo, hi, n, perf, stop_live=stop_live, handoff_input=handoff_input,
         watch=spec.on_chunk if spec is not None else None)
     t1 = time.perf_counter()
-    if perf is not None:
-        perf["loop_s"] = round(t1 - t0, 4)
-        perf["rounds"] = int(rounds)
-        perf["live"] = int(live)
     if converged:
         if spec is not None:
             spec.abort_all()
@@ -996,15 +992,35 @@ def reduce_and_fetch_links(lo, hi, n: int, stop_live: int,
 
 def _serial_fold(lo_h, hi_h, n: int, pst_h, perf) -> tuple:
     """Resolve ``pst_h`` (None: the fold counts pst), then the monolithic
-    fold; ``perf`` gains pst_wait_s and fold_s."""
-    t0 = time.perf_counter()
-    if callable(pst_h):
-        pst_h = pst_h()
-    t1 = time.perf_counter()
-    out = finish_native_host(lo_h, hi_h, n, pst_h)
+    fold; ``perf`` gains pst_wait_s and fold_s (spans
+    ``handoff.pst_wait``, ``handoff.fold``)."""
+    waited: list = []
+    folded: list = []
+    with obs.timed("handoff.pst_wait", waited):
+        if callable(pst_h):
+            pst_h = pst_h()
+    with obs.timed("handoff.fold", folded, links=len(lo_h)):
+        out = finish_native_host(lo_h, hi_h, n, pst_h)
     if perf is not None:
-        perf["pst_wait_s"] = round(t1 - t0, 4)
-        perf["fold_s"] = round(time.perf_counter() - t1, 4)
+        perf["pst_wait_s"] = round(waited[0], 4)
+        perf["fold_s"] = round(folded[0], 4)
+    return out
+
+
+def _hosted_loop(lo, hi, n: int, perf, **kw):
+    """``reduce_links_hosted`` in the span ``build.loop``; ``perf`` gains
+    loop_s (the span's seconds), rounds, live and k1_bytes (K1's least
+    bytes in the loop, ``ops.forest.k1_bytes``)."""
+    took: list = []
+    k1_before = _forest.k1_bytes
+    with obs.timed("build.loop", took, links=int(lo.shape[0])) as sp:
+        out = reduce_links_hosted(lo, hi, n, **kw)
+        sp.annotate(rounds=int(out[3]), live=int(out[2]))
+    if perf is not None:
+        perf["loop_s"] = round(took[0], 4)
+        perf["rounds"] = int(out[3])
+        perf["live"] = int(out[2])
+        perf["k1_bytes"] = _forest.k1_bytes - k1_before
     return out
 
 
@@ -1025,7 +1041,9 @@ def reduce_and_finish_native(lo, hi, n: int, stop_live: int,
     (zero rounds).  ``perf`` gains loop_s, rounds, live, fetch_tail_s
     (the whole tail: fetch, pst wait and fold, minus their overlap),
     pst_wait_s, fold_s, handoff_links, packed_handoff, fetch_windows (0
-    on the serial arm) and the streamed tail's keys."""
+    on the serial arm), k1_bytes and the streamed tail's keys.  Spans:
+    ``build.loop`` around the loop; on the streamed arm ``handoff.tail``
+    around the rest, which fetch_tail_s is the seconds of."""
     if not stream_handoff_enabled():
         kind, a, b, live, rounds = reduce_and_fetch_links(
             lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
@@ -1039,35 +1057,32 @@ def reduce_and_finish_native(lo, hi, n: int, stop_live: int,
                 + perf["fold_s"], 4)
             perf["fetch_windows"] = 0
         return "forest", parent, pst, live, rounds
-    t0 = time.perf_counter()
     # handoff_sort=False: the streamed tail sorts by hi for its windows
-    lo, hi, live, rounds, converged = reduce_links_hosted(
-        lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
+    lo, hi, live, rounds, converged = _hosted_loop(
+        lo, hi, n, perf, stop_live=stop_live, handoff_input=handoff_input,
         handoff_sort=False)
-    t1 = time.perf_counter()
-    if perf is not None:
-        perf["loop_s"] = round(t1 - t0, 4)
-        perf["rounds"] = int(rounds)
-        perf["live"] = int(live)
     if converged:
         if perf is not None:
             perf["fetch_tail_s"] = 0.0
         return "device", lo, hi, int(live), rounds
     accumulate = accumulate_pst_ok and rounds == 0
-    out = _stream_tail(lo, hi, int(live), n, pst_h, accumulate, perf)
-    if out is None:
-        # the stream failed: serial fetch of the SAME device arrays and
-        # the monolithic fold; ``accumulate`` holds for it too (same
-        # multiset), so the fold counts pst exactly as planned
-        lo_h, hi_h, packed = fetch_links_host(lo, hi, int(live), n)
-        if perf is not None:
-            perf["handoff_links"] = int(len(lo_h))
-            perf["packed_handoff"] = packed
-        out = _serial_fold(lo_h, hi_h, n, None if accumulate else pst_h,
-                           perf)
+    tail_s: list = []
+    with obs.timed("handoff.tail", tail_s) as sp:
+        out = _stream_tail(lo, hi, int(live), n, pst_h, accumulate, perf)
+        if out is None:
+            # the stream failed: serial fetch of the SAME device arrays
+            # and the monolithic fold; ``accumulate`` holds for it too
+            # (same multiset), so the fold counts pst exactly as planned
+            lo_h, hi_h, packed = fetch_links_host(lo, hi, int(live), n)
+            sp.annotate(windows=0, links=len(lo_h))
+            if perf is not None:
+                perf["handoff_links"] = int(len(lo_h))
+                perf["packed_handoff"] = packed
+            out = _serial_fold(lo_h, hi_h, n,
+                               None if accumulate else pst_h, perf)
     parent, pst = out
     if perf is not None:
-        perf["fetch_tail_s"] = round(time.perf_counter() - t1, 4)
+        perf["fetch_tail_s"] = round(tail_s[0], 4)
     return "forest", parent, pst, int(live), rounds
 
 

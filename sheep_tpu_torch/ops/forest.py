@@ -23,7 +23,8 @@ Port notes, each a place where torch differs from jnp:
 The reference's ``fori_loop`` chunks are host loops over the same rounds;
 each chunk's stats stay one stacked int32 tensor, so a chunk costs one
 host sync.  On CUDA the descent runs through kernel K1
-(``ops.fused_jump``); on the CPU through its plain version.
+(``ops.fused_jump``), in the span ``forest.k1``, and :data:`k1_bytes`
+counts its least bytes; on the CPU it runs through its plain version.
 """
 
 from __future__ import annotations
@@ -35,9 +36,16 @@ import torch
 
 from .. import INVALID_JNID
 from ..core.forest import Forest
+from ..obs import trace as obs
 from .fused_jump import fused_descend, fused_descend_plain
 
 _MASK32 = 0xFFFFFFFF
+
+#: the least bytes of every K1 descent on the card since the last reset
+#: (set it to 0 to reset): lo and hi read and lo written once, 12 bytes a
+#: link, and each of the descent's tables read once, 4 bytes an entry a
+#: level, however many launches the descent is split into
+k1_bytes = 0
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -95,9 +103,17 @@ def _lift_descend(lo: torch.Tensor, hi: torch.Tensor, n: int, levels: int,
     The seam of kernel K1: on CUDA the descent always runs through it (in
     one pass when ``sorted_links`` says the links come from sort_links,
     else in L2-sized table groups), on the CPU through its plain
-    version."""
+    version.  On the card the descent adds its least bytes to
+    :data:`k1_bytes` and runs in the span ``forest.k1``."""
     if lo.device.type == "cuda":
-        return fused_descend(lo, hi, n, levels, f, sorted_links)
+        global k1_bytes
+        links, width, depth = int(lo.shape[0]), int(f.shape[0]), \
+            max(1, levels)
+        nbytes = 12 * links + 4 * depth * width
+        k1_bytes += nbytes
+        with obs.span("forest.k1", links=links, levels=depth, width=width,
+                      bytes=nbytes):
+            return fused_descend(lo, hi, n, levels, f, sorted_links)
     return fused_descend_plain(lo, hi, n, levels, f)
 
 

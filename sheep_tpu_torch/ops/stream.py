@@ -19,14 +19,14 @@ kernel K1.  Each entry point takes ``device=None``, meaning CUDA.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from .. import INVALID_JNID, resolve_device
 from ..convert import edges_to_device
 from ..core.forest import Forest
+from ..obs import trace as obs
+from . import forest as _forest
 from .forest import (_np, _pad_pow2, _to_forest, forest_fixpoint,
                      parent_from_links, pst_weights, reduce_links_hosted)
 from .sort import degree_histogram
@@ -79,16 +79,22 @@ def _full_vid_pos(pos: np.ndarray, n: int) -> np.ndarray:
     return posx
 
 
-def _padded_block(tail, head, block_edges: int, vid_pad: int, device):
+def _padded_block(tail, head, block_edges: int, vid_pad: int, device,
+                  pad_s: list | None = None, upload_s: list | None = None):
     """One block as int32 tensors of ``block_edges`` records, padded with
-    ``vid_pad`` (which maps to the table's sentinel slot)."""
+    ``vid_pad`` (which maps to the table's sentinel slot).  The host
+    padding runs in the span ``stream.pad``, the copies to ``device`` in
+    ``stream.upload``; ``pad_s`` and ``upload_s`` gain their seconds."""
     b = len(tail)
-    t = np.full(block_edges, vid_pad, dtype=np.int64)
-    h = np.full(block_edges, vid_pad, dtype=np.int64)
-    t[:b] = tail
-    h[:b] = head
-    return (torch.from_numpy(t.astype(np.int32)).to(device),
-            torch.from_numpy(h.astype(np.int32)).to(device))
+    with obs.timed("stream.pad", pad_s, records=b):
+        t = np.full(block_edges, vid_pad, dtype=np.int64)
+        h = np.full(block_edges, vid_pad, dtype=np.int64)
+        t[:b] = tail
+        h[:b] = head
+        t32, h32 = t.astype(np.int32), h.astype(np.int32)
+    with obs.timed("stream.upload", upload_s, records=b):
+        return (torch.from_numpy(t32).to(device),
+                torch.from_numpy(h32).to(device))
 
 
 def build_graph_streaming(blocks, n: int, pos: np.ndarray, block_edges: int,
@@ -124,9 +130,12 @@ def build_graph_streaming_hosted(blocks, n: int, pos: np.ndarray,
     threshold and finished by the exact union-find
     (``ops.build.reduce_and_finish_native``, whose tail arms follow the
     same knobs).  Returns (Forest over n positions, total_rounds).
-    ``perf``: a dict that receives blocks, block_loop_s (the per-block
-    loops' seconds) and the final fold's keys (loop_s, rounds, live,
-    fetch_tail_s, ...)."""
+    ``perf``: a dict that receives blocks, the blocks' seconds in their
+    spans (block_pad_s, ``stream.pad``; block_upload_s, ``stream.upload``;
+    block_loop_s, ``stream.loop``; the span ``stream.links`` holds the
+    link extraction), the final fold's keys (loop_s, rounds, live,
+    fetch_tail_s, ...) and k1_bytes, K1's least bytes in the blocks'
+    loops and the final one."""
     from .build import (default_handoff_factor, handoff_input_ok,
                         reduce_and_finish_native)
 
@@ -137,25 +146,30 @@ def build_graph_streaming_hosted(blocks, n: int, pos: np.ndarray,
     pst = torch.zeros(n, dtype=torch.int32, device=device)
     total_rounds = 0
     blocks_seen = 0
-    block_loop_s = 0.0
+    pad_s, upload_s, loop_s = [], [], []
+    k1_before = _forest.k1_bytes
     for tail, head in blocks:
-        t, h = _padded_block(tail, head, block_edges, vid_pad, device)
-        lo, hi, pst_b = _block_links(t, h, pos_d, n)
-        pst = pst + pst_b
-        if carry_lo is not None:
-            lo = torch.cat([carry_lo, lo])
-            hi = torch.cat([carry_hi, hi])
-        t0 = time.perf_counter()
-        lo, hi, live, rounds, _ = reduce_links_hosted(lo, hi, n,
-                                                      stop_live=2 * n)
-        block_loop_s += time.perf_counter() - t0
+        t, h = _padded_block(tail, head, block_edges, vid_pad, device,
+                             pad_s, upload_s)
+        with obs.span("stream.links"):
+            lo, hi, pst_b = _block_links(t, h, pos_d, n)
+            pst = pst + pst_b
+            if carry_lo is not None:
+                lo = torch.cat([carry_lo, lo])
+                hi = torch.cat([carry_hi, hi])
+        with obs.timed("stream.loop", loop_s, links=int(lo.shape[0])) as sp:
+            lo, hi, live, rounds, _ = reduce_links_hosted(lo, hi, n,
+                                                          stop_live=2 * n)
+            sp.annotate(live=int(live))
         blocks_seen += 1
         total_rounds += rounds
         target = _pad_pow2(live)
         carry_lo, carry_hi = lo[:target], hi[:target]
     if perf is not None:
         perf["blocks"] = blocks_seen
-        perf["block_loop_s"] = round(block_loop_s, 4)
+        perf["block_pad_s"] = round(sum(pad_s), 4)
+        perf["block_upload_s"] = round(sum(upload_s), 4)
+        perf["block_loop_s"] = round(sum(loop_s), 4)
     if carry_lo is None:
         return Forest(np.full(n, INVALID_JNID, np.uint32),
                       np.zeros(n, np.uint32)), 0
@@ -165,6 +179,8 @@ def build_graph_streaming_hosted(blocks, n: int, pos: np.ndarray,
     res = reduce_and_finish_native(
         carry_lo, carry_hi, n, stop_live=default_handoff_factor(device) * n,
         handoff_input=handoff_input_ok(device), pst_h=pst_np, perf=perf)
+    if perf is not None:
+        perf["k1_bytes"] = _forest.k1_bytes - k1_before
     total_rounds += res[4]
     if res[0] == "device":  # converged before the handoff threshold
         parent = parent_from_links(res[1], res[2], n)
