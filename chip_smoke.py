@@ -47,10 +47,9 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    the numpy degree order against the fused native sort, the blocked
    fused build against edges_to_links + the plain fold, the links fold on
    1 thread and on the host's granted cores (which it must use), and the
-   hybrid with the numpy order forced into its prefetch and with the
-   native one, each equal to the oracle, with prefetch_seq_s,
-   prefetch_pst_s, pst_wait_s and fold_s; the host's cores and the
-   OpenMP runtimes mapped into the process;
+   hybrid, equal to the oracle, with seq and pst from the card
+   (pst_source), prefetch_s, pst_wait_s and fold_s; the host's cores and
+   the OpenMP runtimes mapped into the process;
 7. the speculative arm forced, through its seams, to hand off the
    snapshot its side stream fetched: spec_complete (the stream stops the
    loop) and spec_wait, each 6-byte packed and in int32 pairs, on
@@ -1141,18 +1140,6 @@ def numpy_degree_sequence(tail, head, n=None):
     return vids[np.argsort(deg[vids], kind="stable")].astype(np.uint32)
 
 
-@contextlib.contextmanager
-def attr_set(obj, name: str, value):
-    """Replace ``obj.name`` inside the block (None keeps it)."""
-    old = getattr(obj, name)
-    if value is not None:
-        setattr(obj, name, value)
-    try:
-        yield
-    finally:
-        setattr(obj, name, old)
-
-
 def timed_call(fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1163,9 +1150,8 @@ def native_phase(device: torch.device, data):
     """The native host runtime on the real-size graph: the numpy degree
     order against the fused native sort; the blocked fused build against
     edges_to_links + the plain fold; the links fold on 1 thread and on
-    the host's granted cores; then the hybrid with the numpy order forced
-    into its prefetch and with the native one.  Every pair equal, each
-    side timed (host seconds)."""
+    the host's granted cores; then the hybrid, its seq and pst from the
+    card.  Every pair equal, each side timed (host seconds)."""
     from sheep_tpu_torch import native
     from sheep_tpu_torch.core import sequence as seqmod
     from sheep_tpu_torch.ops.build import build_graph_hybrid
@@ -1225,27 +1211,21 @@ def native_phase(device: torch.device, data):
                              f"threads, not the host's {cores}")
     if rec["fold_1_thread_used"] != 1:
         raise AssertionError("native: the unthreaded fold used threads")
-    keys = ("prefetch_s", "prefetch_seq_s", "prefetch_pst_s", "pst_wait_s",
-            "fold_s", "loop_s", "stream_mode")
-    for arm, order in (("numpy_order", numpy_degree_sequence),
-                       ("native_order", None)):
-        perf: dict = {}
-        with attr_set(seqmod, "degree_sequence", order):
-            # host_edges as the card's default sets it: the prefetch
-            # recomputes seq and pst from the host records
-            (seq, forest), wall, launches = counted_build(
-                lambda: build_graph_hybrid(tail, head, device=device,
-                                           host_edges=(tail, head),
-                                           perf=perf),
-                f"native: hybrid ({arm})")
-        if not forest_equal(seq, forest, want_seq, want):
-            raise AssertionError(f"native: hybrid ({arm}) differs from the "
-                                 f"oracle")
-        if "prefetch_seq_s" not in perf:
-            raise AssertionError(f"native: hybrid ({arm}) recorded no "
-                                 f"prefetch split: {perf}")
-        rec[arm] = {"wall_s": wall, "k1_launches": launches,
-                    **{k: perf.get(k) for k in keys}}
+    keys = ("pst_source", "prefetch_s", "pst_wait_s", "fold_s", "loop_s",
+            "stream_mode")
+    perf: dict = {}
+    # on the card the prep counts pst and the prefetch fetches seq and
+    # pst, so no host order enters the hybrid
+    (seq, forest), wall, launches = counted_build(
+        lambda: build_graph_hybrid(tail, head, device=device, perf=perf),
+        "native: hybrid")
+    if not forest_equal(seq, forest, want_seq, want):
+        raise AssertionError("native: hybrid differs from the oracle")
+    if device.type == "cuda" and perf.get("pst_source") != "card":
+        raise AssertionError(f"native: the hybrid on the card took seq and "
+                             f"pst from the host: {perf}")
+    rec["hybrid"] = {"wall_s": wall, "k1_launches": launches,
+                     **{k: perf.get(k) for k in keys}}
     log("native " + json.dumps(rec))
     return rec
 

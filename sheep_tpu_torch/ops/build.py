@@ -16,7 +16,9 @@ each window is folded into the resumable union-find
 (``native.LinksFold``) the moment it lands, so the fold of window k
 overlaps the fetch of window k+1.  On CUDA the slices go into pinned host
 memory through ``non_blocking`` copies on a side stream that waits on an
-event recorded after the sort.  On the CPU the fetch is a view, so the
+event recorded after the sort, and seq and pst come the same way: the
+prep counts pst on the card, and the prefetch thread copies both while
+the loop runs (:func:`pst_source`).  On the CPU the fetch is a view, so the
 windows split on the host, and the prep takes the reference's CPU
 default: a host degree sequence (:func:`host_seq_mode`) and an immediate
 handoff whose fold counts pst itself.  Any stream failure falls back to a
@@ -39,6 +41,7 @@ their meanings.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import os
 import threading
 import time
@@ -158,6 +161,28 @@ def _host_seq_pst(tail_np: np.ndarray, head_np: np.ndarray, n: int,
     return seq_h, pst.astype(np.uint32)
 
 
+def _fetch_seq_pst(seq, pst: torch.Tensor, m, stream):
+    """The card arm's prefetch: host copies of the prep's seq (a device
+    tensor, or the given order, already on the host) and its pst, through
+    :func:`_to_host` on ``stream``, a side stream that waits on the prep
+    (pinned buffers, ``non_blocking`` copies, ``record_stream`` on the
+    sources; None: plain copies).  ``m``: the prep's active count (a 0-d
+    device tensor beside a device seq, read on ``stream``).  Returns (seq
+    uint32 [m], pst uint32 [n], m, bytes copied)."""
+    given = isinstance(seq, np.ndarray)
+    parts = [pst] if given else [seq, pst]
+    ctx = contextlib.nullcontext()
+    if stream is not None:
+        for part in parts:
+            part.record_stream(stream)
+        ctx = torch.cuda.stream(stream)
+    with ctx:
+        got = _to_host(parts, stream)
+        m = int(m)
+    seq_h = seq if given else got[0][:m]
+    return _as_u32(seq_h), _as_u32(got[-1]), m, sum(a.nbytes for a in got)
+
+
 def build_graph_hybrid(tail, head, num_vertices: int | None = None,
                        handoff_factor: int | None = None,
                        host_edges: tuple[np.ndarray, np.ndarray] | None = None,
@@ -169,12 +194,16 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     ``device`` None is CUDA (RuntimeError without it); pass "cpu" to run
     on the CPU.  ``handoff_factor``: hand off once at most factor * n live
     links remain (SHEEP_HANDOFF_FACTOR; default 3 on CUDA, 8 on the CPU).
-    ``host_edges``: the same records as host numpy arrays; with them seq
-    and pst are recomputed on the host while the device reduces (numpy
-    inputs serve as their own host copy on CUDA, and on the CPU under the
-    streamed immediate handoff, where they feed the host-seq prep).
+    ``host_edges``: the same records as host numpy arrays, read on the
+    CPU only (:func:`pst_source`): there seq and pst are recomputed from
+    them on the host while the device reduces, and numpy inputs serve as
+    their own host copy under the streamed immediate handoff, where they
+    feed the host-seq prep.  On CUDA the card counts pst in its prep and
+    a side stream fetches seq and pst into pinned host memory
+    (:func:`_fetch_seq_pst`), so ``host_edges`` is not used.
     ``seq``: a given elimination order (edges to vids outside it count
-    toward pst, never the tree).  ``perf``: a dict that receives loop_s,
+    toward pst, never the tree).  ``perf``: a dict that receives
+    pst_source (:func:`pst_source`), loop_s,
     rounds, live, fetch_tail_s, handoff_links, packed_handoff, fold_s,
     pst_wait_s, prefetch_s (the seq/pst prefetch thread's own time, when
     it runs; prefetch_seq_s and prefetch_pst_s split it when it
@@ -186,7 +215,9 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     spec_stopped_loop, spec_mode, spec_start_live and spec_fetch_phases
     (:func:`fetch_phases`).  Spans (``obs.trace``): ``build.prep`` (the
     upload and the link mapping), ``build.prefetch`` on the prefetch
-    thread, then the loop and the tail's (:func:`reduce_and_finish_native`).
+    thread (attributes ``source``, as pst_source, and ``bytes``, those
+    copied from the device), then the loop and the tail's
+    (:func:`reduce_and_finish_native`).
     """
     device = resolve_device(device)
     if handoff_factor is None:
@@ -197,13 +228,16 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     if n == 0:
         return np.empty(0, np.uint32), Forest(
             np.empty(0, np.uint32), np.empty(0, np.uint32))
+    source = pst_source(device)
+    if perf is not None:
+        perf["pst_source"] = source
     streamed_cpu = stream_handoff_enabled() and handoff_input_ok(device)
-    if host_edges is None \
-            and isinstance(tail, np.ndarray) and isinstance(head, np.ndarray) \
-            and (device.type == "cuda" or streamed_cpu):
-        # the reference's defaults: on an accelerator the host copy
-        # replaces the 2n*4B seq/pst fetch; under the CPU's streamed
-        # immediate handoff it feeds the host-seq prep below
+    if source == "card":
+        host_edges = None
+    elif host_edges is None and streamed_cpu \
+            and isinstance(tail, np.ndarray) and isinstance(head, np.ndarray):
+        # under the CPU's streamed immediate handoff the numpy inputs feed
+        # the host-seq prep below
         host_edges = (tail, head)
     with obs.span("build.prep", records=len(tail), n=n):
         t, h = _device_edges(tail, head, device)
@@ -254,11 +288,26 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
         # _lazy_pst), so there is nothing to prefetch
         fetched = {"seq": given_seq, "m": len(given_seq)}
     else:
+        ready = None
+        if source == "card":
+            # the side stream's copies start once the prep's kernels are done
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(lo.device))
+
         def _prefetch():
+            nonlocal pst
             took: list = []
-            with obs.timed("build.prefetch", took):
+            with obs.timed("build.prefetch", took, source=source) as sp:
+                nbytes = 0
                 try:
-                    if host_edges is not None:
+                    if ready is not None:
+                        with torch.cuda.device(lo.device):
+                            side = torch.cuda.Stream()
+                            side.wait_event(ready)
+                            (fetched["seq"], fetched["pst"], fetched["m"],
+                             nbytes) = _fetch_seq_pst(seq, pst, m, side)
+                        pst = None  # no device pst outlives the copy
+                    elif host_edges is not None:
                         t_np, h_np = host_edges
                         fetched["seq"], fetched["pst"] = _host_seq_pst(
                             t_np, h_np, n, seq=given_seq, perf=perf)
@@ -269,6 +318,7 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
                             fetched["pst"] = _np(pst)
                 except Exception:  # fall back to the synchronous fetch below
                     fetched.clear()
+                sp.annotate(bytes=nbytes)
             if perf is not None:
                 perf["prefetch_s"] = round(took[0], 4)
 
@@ -302,6 +352,16 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     m = int(fetched.get("m", m))
     seq_np = _as_u32(np.ascontiguousarray(_np(fetched.get("seq", seq))[:m]))
     return seq_np, Forest(parent_h[:m].copy(), pst_out[:m].copy())
+
+
+def pst_source(device: torch.device) -> str:
+    """Where the in-memory hybrid takes seq and pst from: "card" on CUDA,
+    where the prep counts pst (``pst_weights``) and a side stream fetches
+    seq and pst in milliseconds (:func:`_fetch_seq_pst`); "host" on the
+    CPU, where host and device share the cores and the reference's CPU
+    choices stand (the host-seq prep, :func:`_host_seq_pst` from host
+    edges, the fold's own count)."""
+    return "card" if device.type == "cuda" else "host"
 
 
 def handoff_input_ok(device: torch.device) -> bool:

@@ -85,6 +85,41 @@ def test_host_seq_pst():
         np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("device, want", [("cuda", "card"),
+                                          ("cpu", "host")])
+def test_pst_source(device, want):
+    assert PB.pst_source(torch.device(device)) == want
+
+
+@pytest.mark.parametrize("given", [False, True])
+def test_fetch_seq_pst_equals_host_seq_pst(given):
+    """The card arm's fetch (plain copies here, no stream) gives the host
+    pass's seq and pst entry for entry, on a Kronecker graph with
+    self-loops and duplicate records, for the degree-sort prep and for a
+    given subset order."""
+    tail, head = rmat_edges(10, 8 << 10, seed=17)
+    assert (tail == head).any()
+    keys = tail.astype(np.int64) << 32 | head
+    assert len(np.unique(keys)) < len(keys)
+    n = int(max(tail.max(), head.max())) + 1
+    t, h = edges_to_device(tail, head, "cpu")
+    seq = None
+    if given:
+        full = degree_sequence(tail, head)
+        seq = full[: len(full) * 2 // 3]
+        _, _, pst = PB.given_seq_links(t, h, seq, n)
+        got = PB._fetch_seq_pst(seq, pst, len(seq), None)
+    else:
+        dev_seq, _, m, _, _, pst = PB.prepare_links(t, h, n)
+        got = PB._fetch_seq_pst(dev_seq, pst, m, None)
+    want = PB._host_seq_pst(tail, head, n, seq=seq)
+    assert got[0].dtype == got[1].dtype == np.uint32
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == len(want[0])
+    assert got[3] == (1 if given else 2) * n * 4
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_build_graph_device(seed):
     tail, head = _graph(7100 + seed)
@@ -140,6 +175,7 @@ def test_build_graph_hybrid_knobs(arm, monkeypatch, packed,
     want = RB.build_graph_hybrid(tail, head, handoff_factor=2)
     _same(got, want)
     assert perf["packed_handoff"] == (packed == "1")
+    assert perf["pst_source"] == "host"
     assert perf["rounds"] > 0 and perf["handoff_links"] <= 2 * 8192
     keys = ("loop_s", "fetch_tail_s", "fold_s", "pst_wait_s", "live",
             "fetch_windows")

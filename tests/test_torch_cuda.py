@@ -4,6 +4,8 @@ are not 16-byte aligned and on ragged lengths; K1 and P2 also with lo
 below 0 and past the table), the CUDA builds (the hybrid on the
 streamed, serial and speculative arms, the last also forced to hand off
 the snapshot its side stream fetched) against the port's host oracle,
+the hybrid's card-counted pst and side-stream fetch of seq and pst
+against the CPU build,
 and the fault-tolerant build on the card (K1 on its single rung, a kill
 and resume, a real CUDA out-of-memory error and a watchdog on a held
 dispatch, each degrading to the host rung, and the watchdog's stream;
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from sheep_tpu_torch.core import build_forest, degree_sequence
+from sheep_tpu_torch.obs import trace as obs
 from sheep_tpu_torch.ops import fused_jump as pj
 from sheep_tpu_torch.ops import probe
 from sheep_tpu_torch.ops.build import build_graph_device, build_graph_hybrid
@@ -231,6 +234,39 @@ def test_cuda_hybrid_arms_equal_oracle(cuda, monkeypatch, arm):
     np.testing.assert_array_equal(seq, want_seq)
     np.testing.assert_array_equal(forest.parent, want.parent)
     np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
+
+
+@pytest.mark.parametrize("given", [False, True])
+def test_cuda_hybrid_counts_pst_on_the_card(cuda, monkeypatch, given):
+    """Numpy inputs on the card, 2^18 slots x 2^21 records: the prep
+    counts pst and the prefetch fetches seq and pst on a side stream (for
+    a given order, pst alone), equal to the CPU build bit for bit, with
+    no host pst pass."""
+    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_OVERLAP_HANDOFF",
+              "SHEEP_HANDOFF_FACTOR", "SHEEP_PACK_HANDOFF",
+              "SHEEP_HANDOFF_WINDOWS", "SHEEP_OVERLAP_SLICE"):
+        monkeypatch.delenv(k, raising=False)
+    n = 1 << 18
+    tail, head = rmat_edges(18, 8 << 18, seed=9)
+    seq = None
+    if given:
+        full = degree_sequence(tail, head)
+        seq = full[: len(full) * 2 // 3]
+    want_seq, want = build_graph_hybrid(tail, head, n, seq=seq,
+                                        device="cpu")
+    perf = {}
+    with obs.capture() as cap:
+        got_seq, got = build_graph_hybrid(tail, head, n, seq=seq, perf=perf)
+    np.testing.assert_array_equal(got_seq, want_seq)
+    np.testing.assert_array_equal(got.parent, want.parent)
+    np.testing.assert_array_equal(got.pst_weight, want.pst_weight)
+    assert perf["pst_source"] == "card"
+    assert "prefetch_pst_s" not in perf and "prefetch_seq_s" not in perf
+    assert not cap.named("build.prefetch.pst")
+    assert not cap.named("build.prefetch.seq")
+    [pre] = cap.named("build.prefetch")
+    assert pre.attrs == {"source": "card",
+                         "bytes": (1 if given else 2) * n * 4}
 
 
 def test_cuda_speculative_arm_raises(cuda, monkeypatch):
