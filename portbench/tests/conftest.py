@@ -26,21 +26,23 @@ for path in (BENCH, REPO):
 def tiny_spec(tmp_path, log_n: int = 10, records: int = 1 << 13,
               block: int = 1 << 11):
     """The repository's benchmark with every configuration cut to a
-    graph of 2^log_n slots and ``records`` records, and the stream mix's
-    block to ``block`` records (its traffic files copied to tmp_path)."""
+    graph of 2^log_n slots and ``records`` records, and every stream
+    mix's block to ``block`` records: a checkout at tmp_path whose
+    configuration and traffic files are copies, found at the relative
+    paths the repository's ``BENCHMARK.json`` gives them."""
     from harness.spec import Spec
 
     spec = Spec.load(REPO)
     bench = copy.deepcopy(spec.bench)
+    bench_dir = tmp_path / "portbench"
+    (bench_dir / "configs").mkdir(parents=True)
+    (bench_dir / "traffic").mkdir()
     for c in bench["configs"]:
         cfg = spec.config(c["name"])
         cfg["graph"]["log_vid_slots"] = log_n
         cfg["graph"]["records"] = records
-        path = tmp_path / f"{c['name']}.json"
-        path.write_text(json.dumps(cfg))
-        c["file"] = str(path)
-    bench_dir = tmp_path / "portbench"
-    (bench_dir / "traffic").mkdir(parents=True)
+        c["file"] = f"portbench/configs/{c['name']}.json"
+        (tmp_path / c["file"]).write_text(json.dumps(cfg))
     for w in bench["workloads"]:
         traffic = spec.traffic(w["traffic"])
         if "block_records" in traffic:
@@ -49,7 +51,7 @@ def tiny_spec(tmp_path, log_n: int = 10, records: int = 1 << 13,
             json.dumps(traffic))
     for folder in ("metrics", "entries"):
         os.symlink(os.path.join(BENCH, folder), bench_dir / folder)
-    return Spec(bench, REPO, str(bench_dir))
+    return Spec(bench, str(tmp_path), str(bench_dir))
 
 
 @pytest.fixture

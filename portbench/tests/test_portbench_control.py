@@ -12,11 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import tiny_spec
+from conftest import REPO, tiny_spec
 from harness import session
 from harness.controls import KINDS, Control
+from harness.spec import Spec
 
-CELLS = ["lj.build", "orkut.build", "lj.stream"]
+CELLS = Spec.load(REPO).cell_names()
 
 
 def _run(spec, cell, hook=None, seed=2**31 + 9):

@@ -16,11 +16,12 @@ import torch
 
 from conftest import BENCH, REPO, tiny_spec
 from harness import session
+from harness.spec import Spec
 
 RUN = os.path.join(BENCH, "run.py")
 
 
-@pytest.mark.parametrize("cell", ["lj.build", "orkut.build", "lj.stream"])
+@pytest.mark.parametrize("cell", Spec.load(REPO).cell_names())
 @pytest.mark.parametrize("trace", [False, True])
 def test_cpu_run_is_correct_and_reports(tmp_path, cell, trace):
     spec = tiny_spec(tmp_path)

@@ -33,8 +33,7 @@ def _run(perfs):
                builds=builds)
 
 
-@pytest.mark.parametrize("name", ["prefetch_seq_s", "prefetch_pst_s",
-                                  "unpack_s", "block_pad_s",
+@pytest.mark.parametrize("name", ["unpack_s", "block_pad_s",
                                   "block_upload_s"])
 def test_span_timer_readers_average_and_stay_silent(name):
     run = _run([{name: 0.5}, {name: 0.7}, None])
