@@ -61,6 +61,23 @@ from .forest import (_i32, _np, _to_forest, forest_fixpoint,
 from .sort import (degree_histogram, degree_order, edge_links,
                    given_seq_links)
 
+#: the bytes every handoff fetch has copied off the links' device since
+#: the last reset (set it to 0 to reset): 6 a link packed, 8 unpacked
+#: (:func:`pack_handoff`), each fetched slot counted once, dead ones in
+#: the fetched prefix too; on the streamed tail, the serial fetch and the
+#: speculative snapshot alike.  The CPU's host-split windows read the
+#: links in place and count nothing
+handoff_bytes = 0
+_handoff_lock = threading.Lock()
+
+
+def _count_handoff(nbytes: int) -> None:
+    """Adds ``nbytes`` to :data:`handoff_bytes` (fetch threads count
+    too)."""
+    global handoff_bytes
+    with _handoff_lock:
+        handoff_bytes += int(nbytes)
+
 
 def build_step(tail: torch.Tensor, head: torch.Tensor, n: int):
     """The whole forward step on edge records (int32 [E]) over n vid
@@ -207,7 +224,8 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     rounds, live, fetch_tail_s, handoff_links, packed_handoff, fold_s,
     pst_wait_s, prefetch_s (the seq/pst prefetch thread's own time, when
     it runs; prefetch_seq_s and prefetch_pst_s split it when it
-    recomputes them from the host edges), k1_bytes, fetch_windows and,
+    recomputes them from the host edges), k1_bytes, handoff_bytes (the
+    bytes the handoff copied off the device), fetch_windows and,
     from the streamed tail, stream_mode, window_fetch_s, window_fold_s,
     unpack_s, overlap_s and overlap_frac, or, from the serial arm's
     speculative snapshot,
@@ -440,15 +458,23 @@ def _overlap_enabled(device: torch.device) -> bool:
 def fetch_links_host(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int):
     """The serial link-fetch policy: a 64K-granular cut of the live
     prefix, 6-byte packing per :func:`pack_handoff`, dead-sentinel
-    filter.  Returns (lo_h, hi_h int32 numpy arrays, packed)."""
+    filter.  Returns (lo_h, hi_h int32 numpy arrays, packed).  Span
+    ``handoff.fetch`` (attributes ``links``, the slots fetched,
+    ``packed`` and ``bytes``, counted in :data:`handoff_bytes`)."""
     cut = min(int(lo.shape[0]), -(-live // (1 << 16)) * (1 << 16))
     packed = pack_handoff(n, lo.device)
-    if packed:
-        buf = pack_links_6b(lo[:cut], hi[:cut]).cpu().numpy()[:live]
-        lo_h, hi_h = unpack_links_6b(buf)
-    else:
-        lo_h = lo[:cut].cpu().numpy()[:live]
-        hi_h = hi[:cut].cpu().numpy()[:live]
+    with obs.span("handoff.fetch", links=cut, packed=packed) as sp:
+        if packed:
+            buf = pack_links_6b(lo[:cut], hi[:cut]).cpu().numpy()
+            nbytes = buf.nbytes
+            lo_h, hi_h = unpack_links_6b(buf[:live])
+        else:
+            lo_h = lo[:cut].cpu().numpy()
+            hi_h = hi[:cut].cpu().numpy()
+            nbytes = lo_h.nbytes + hi_h.nbytes
+            lo_h, hi_h = lo_h[:live], hi_h[:live]
+        _count_handoff(nbytes)
+        sp.annotate(bytes=nbytes)
     keep = lo_h < n  # a few scattered dead slots may remain in the prefix
     return lo_h[keep], hi_h[keep], packed
 
@@ -605,7 +631,8 @@ class _StreamFetcher:
                 got = _to_host([_slice_rows(buf, start, self.slice_len)
                                 for buf in self._dev], side, self.phases)
                 nbytes = sum(a.nbytes for a in got)
-                sp.annotate(bytes=nbytes)
+                _count_handoff(nbytes)
+                sp.annotate(bytes=nbytes, links=len(got[0]))
             self.phases["slices"] += 1
             self.phases["bytes"] += nbytes
             self.phases["busy_s"] += self._slice_s[-1]
@@ -824,7 +851,9 @@ def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
                 fold.block(_as_u32(wlo), _as_u32(whi))
             links_folded += len(wlo)
         parent, pst_out = fold.finish()
-        obs.annotate(windows=w, links=links_folded)  # on handoff.tail
+        # on handoff.tail
+        obs.annotate(windows=w, links=links_folded,
+                     packed=stream is not None and stream.packed)
     except Exception as exc:
         if stream is not None:
             stream.abort()
@@ -1050,16 +1079,17 @@ def reduce_and_fetch_links(lo, hi, n: int, stop_live: int,
     return "host", lo_h, hi_h, int(live), rounds
 
 
-def _serial_fold(lo_h, hi_h, n: int, pst_h, perf) -> tuple:
+def _serial_fold(lo_h, hi_h, n: int, pst_h, perf, packed: bool) -> tuple:
     """Resolve ``pst_h`` (None: the fold counts pst), then the monolithic
     fold; ``perf`` gains pst_wait_s and fold_s (spans
-    ``handoff.pst_wait``, ``handoff.fold``)."""
+    ``handoff.pst_wait``, ``handoff.fold``, the latter with ``packed``,
+    the width the links crossed in)."""
     waited: list = []
     folded: list = []
     with obs.timed("handoff.pst_wait", waited):
         if callable(pst_h):
             pst_h = pst_h()
-    with obs.timed("handoff.fold", folded, links=len(lo_h)):
+    with obs.timed("handoff.fold", folded, links=len(lo_h), packed=packed):
         out = finish_native_host(lo_h, hi_h, n, pst_h)
     if perf is not None:
         perf["pst_wait_s"] = round(waited[0], 4)
@@ -1101,16 +1131,32 @@ def reduce_and_finish_native(lo, hi, n: int, stop_live: int,
     (zero rounds).  ``perf`` gains loop_s, rounds, live, fetch_tail_s
     (the whole tail: fetch, pst wait and fold, minus their overlap),
     pst_wait_s, fold_s, handoff_links, packed_handoff, fetch_windows (0
-    on the serial arm), k1_bytes and the streamed tail's keys.  Spans:
-    ``build.loop`` around the loop; on the streamed arm ``handoff.tail``
-    around the rest, which fetch_tail_s is the seconds of."""
+    on the serial arm), k1_bytes, handoff_bytes (the bytes its fetches
+    copied off the device, :data:`handoff_bytes`; 0 where nothing was
+    fetched) and the streamed tail's keys.  Spans: ``build.loop`` around
+    the loop; on the streamed arm ``handoff.tail`` around the rest,
+    which fetch_tail_s is the seconds of (attributes ``windows``,
+    ``links``, ``bytes`` as handoff_bytes, ``packed``)."""
+    bytes_before = handoff_bytes
+    out = _reduce_and_finish(lo, hi, n, stop_live, handoff_input, pst_h,
+                             accumulate_pst_ok, perf)
+    if perf is not None:
+        perf["handoff_bytes"] = handoff_bytes - bytes_before
+    return out
+
+
+def _reduce_and_finish(lo, hi, n: int, stop_live: int, handoff_input: bool,
+                       pst_h, accumulate_pst_ok: bool, perf):
+    """The body of :func:`reduce_and_finish_native`, which counts its
+    bytes."""
     if not stream_handoff_enabled():
         kind, a, b, live, rounds = reduce_and_fetch_links(
             lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
             perf=perf)
         if kind == "device":
             return "device", a, b, live, rounds
-        parent, pst = _serial_fold(a, b, n, pst_h, perf)
+        parent, pst = _serial_fold(a, b, n, pst_h, perf,
+                                   pack_handoff(n, lo.device))
         if perf is not None:
             perf["fetch_tail_s"] = round(
                 perf.get("fetch_tail_s", 0.0) + perf["pst_wait_s"]
@@ -1127,6 +1173,7 @@ def reduce_and_finish_native(lo, hi, n: int, stop_live: int,
         return "device", lo, hi, int(live), rounds
     accumulate = accumulate_pst_ok and rounds == 0
     tail_s: list = []
+    bytes_before = handoff_bytes
     with obs.timed("handoff.tail", tail_s) as sp:
         out = _stream_tail(lo, hi, int(live), n, pst_h, accumulate, perf)
         if out is None:
@@ -1134,12 +1181,13 @@ def reduce_and_finish_native(lo, hi, n: int, stop_live: int,
             # and the monolithic fold; ``accumulate`` holds for it too
             # (same multiset), so the fold counts pst exactly as planned
             lo_h, hi_h, packed = fetch_links_host(lo, hi, int(live), n)
-            sp.annotate(windows=0, links=len(lo_h))
+            sp.annotate(windows=0, links=len(lo_h), packed=packed)
             if perf is not None:
                 perf["handoff_links"] = int(len(lo_h))
                 perf["packed_handoff"] = packed
             out = _serial_fold(lo_h, hi_h, n,
-                               None if accumulate else pst_h, perf)
+                               None if accumulate else pst_h, perf, packed)
+        sp.annotate(bytes=handoff_bytes - bytes_before)
     parent, pst = out
     if perf is not None:
         perf["fetch_tail_s"] = round(tail_s[0], 4)
