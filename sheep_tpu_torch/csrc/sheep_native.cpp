@@ -1,9 +1,9 @@
 // sheep_native.cpp: the port's native host runtime, its own copy of the
 // reference's C++ host runtime (sheep_tpu/native/src/sheep_native.cpp).
 // One library holds the fold (plain, cache-blocked, threaded), the fused
-// degree sort, the edge-to-link map, the treewidth mode's parameterized
-// insert (sheep_jxn_build), the forward tree partition, FENNEL and the
-// streamed evaluator's block.
+// degree sort, the edge-to-link map, the unpack of the 6-byte link
+// handoff, the treewidth mode's parameterized insert (sheep_jxn_build),
+// the forward tree partition, FENNEL and the streamed evaluator's block.
 //
 // The reference implements these in C++ (lib/jtree.cpp insert loop,
 // lib/unionfind.h find/unify, lib/jnode.cpp merge, lib/partition.cpp
@@ -979,6 +979,46 @@ int64_t sheep_edges_to_links(const uint32_t* tail, const uint32_t* head,
     lo_out[k] = pt < ph ? pt : ph;
     hi_out[k] = pt < ph ? ph : pt;
     ++k;
+  }
+  return k;
+}
+
+// Decode the 6-byte packed handoff (ops.forest.pack_links_6b: lo then hi,
+// each 24-bit little-endian) of nbufs host slices, slices[j] holding
+// counts[j] links, into lo_out/hi_out in order, keeping only links with
+// lo < n: the dead sentinel slots (lo == n) drop in the same pass, so the
+// fold takes the output as it is.  The outputs hold sum(counts) entries.
+// Returns the number of links kept, or -1 on a negative size.
+int64_t sheep_unpack_links_6b(const uint8_t* const* slices,
+                              const int64_t* counts, int64_t nbufs,
+                              int64_t n, uint32_t* lo_out,
+                              uint32_t* hi_out) {
+  static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+                "the 8-byte load reads the packed bytes little-endian");
+  if (n < 0 || nbufs < 0) return -1;
+  const uint64_t bound = (uint64_t)n;
+  int64_t k = 0;
+  for (int64_t j = 0; j < nbufs; ++j) {
+    const int64_t m = counts[j];
+    if (m < 0) return -1;
+    const uint8_t* p = slices[j];
+    // one unaligned 8-byte load a link while two more bytes follow it in
+    // the slice; the last link reads its six bytes one by one
+    int64_t i = 0;
+    for (; i + 1 < m; ++i, p += 6) {
+      uint64_t w;
+      std::memcpy(&w, p, sizeof(w));
+      const uint32_t lo = (uint32_t)(w & 0xFFFFFFu);
+      lo_out[k] = lo;
+      hi_out[k] = (uint32_t)((w >> 24) & 0xFFFFFFu);
+      k += lo < bound;  // branch-free compaction: a dead slot is overwritten
+    }
+    for (; i < m; ++i, p += 6) {
+      const uint32_t lo = p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16;
+      lo_out[k] = lo;
+      hi_out[k] = p[3] | (uint32_t)p[4] << 8 | (uint32_t)p[5] << 16;
+      k += lo < bound;
+    }
   }
   return k;
 }

@@ -5,11 +5,12 @@ into ``_build/libsheep_torch_native.so``.
 
 The library holds the elimination-forest fold (monolithic, resumable,
 fused from edges; plain, cache-blocked and OpenMP-threaded), the degree
-histogram and the fused degree sort, the edge-to-link map, the treewidth
-mode's parameterized insert, the forward tree partition, FENNEL and the
-streamed evaluator's block.  Its own name
-and path keep it apart from the reference's ``libsheep_native.so`` when
-both load in one process (ctypes loads with ``RTLD_LOCAL``).
+histogram and the fused degree sort, the edge-to-link map, the unpack of
+the 6-byte link handoff, the treewidth mode's parameterized insert, the
+forward tree partition, FENNEL and the streamed evaluator's block.  Its
+own name and path keep it apart from the reference's
+``libsheep_native.so`` when both load in one process (ctypes loads with
+``RTLD_LOCAL``).
 
 The port has no numpy fallback for a missing library: a failed build
 raises with the compiler's output.  ctypes releases the GIL for each
@@ -86,6 +87,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sheep_edges_to_links.restype = ctypes.c_int64
     lib.sheep_edges_to_links.argtypes = [
         _u32p, _u32p, ctypes.c_int64, _u32p, ctypes.c_int64, _u32p, _u32p]
+    lib.sheep_unpack_links_6b.restype = ctypes.c_int64
+    lib.sheep_unpack_links_6b.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), _i64p, ctypes.c_int64,
+        ctypes.c_int64, _u32p, _u32p]
     lib.sheep_build_forest_edges.restype = ctypes.c_int
     lib.sheep_build_forest_edges.argtypes = [
         _u32p, _u32p, ctypes.c_int64, _u32p, ctypes.c_int64,
@@ -360,6 +365,30 @@ def edges_to_links(tail: np.ndarray, head: np.ndarray, pos: np.ndarray):
     lo = np.empty(len(tail), dtype=np.uint32)
     hi = np.empty(len(tail), dtype=np.uint32)
     k = lib.sheep_edges_to_links(tail, head, len(tail), pos, len(pos), lo, hi)
+    return lo[:k], hi[:k]
+
+
+def unpack_links_6b(slices, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Decode the 6-byte packed links of ``slices`` (uint8 [k, 6] arrays,
+    each C-contiguous; ``ops.forest.pack_links_6b``'s format) in order,
+    in one pass that also drops the dead slots (lo >= n).  Returns (lo,
+    hi) int32 arrays of the links kept: ``ops.forest.unpack_links_6b`` of
+    the slices' concatenation, masked to lo < n."""
+    for s in slices:
+        if s.dtype != np.uint8 or s.ndim != 2 or s.shape[1] != 6 \
+                or not s.flags["C_CONTIGUOUS"]:
+            raise TypeError("each slice must be a C-contiguous uint8 "
+                            "array of shape (k, 6)")
+    counts = np.array([len(s) for s in slices], dtype=np.int64)
+    total = int(counts.sum())
+    lo = np.empty(total, dtype=np.int32)
+    hi = np.empty(total, dtype=np.int32)
+    ptrs = (ctypes.c_void_p * max(len(slices), 1))(
+        *[s.ctypes.data for s in slices])
+    k = load_library().sheep_unpack_links_6b(
+        ptrs, counts, len(slices), n, lo.view(np.uint32), hi.view(np.uint32))
+    if k < 0:
+        raise ValueError(f"sheep_unpack_links_6b failed rc={k} (n={n})")
     return lo[:k], hi[:k]
 
 

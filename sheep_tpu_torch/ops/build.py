@@ -57,7 +57,7 @@ from . import forest as _forest
 from .forest import (_i32, _np, _to_forest, forest_fixpoint,
                      forest_fixpoint_hosted, pack_links_6b,
                      parent_from_links, pst_weights, reduce_links_hosted,
-                     sort_links_by_hi, unpack_links_6b)
+                     sort_links_by_hi)
 from .sort import (degree_histogram, degree_order, edge_links,
                    given_seq_links)
 
@@ -455,28 +455,42 @@ def _overlap_enabled(device: torch.device) -> bool:
     return device.type != "cpu"
 
 
+def unpack_handoff(slices: list, n: int):
+    """The links of a 6-byte packed handoff (uint8 [k, 6] host slices, in
+    order) as int32 (lo, hi) with the dead slots (lo >= n) dropped, in
+    one pass of ``native.unpack_links_6b``.  Returns (lo, hi, dead): dead
+    the slots dropped."""
+    from .. import native
+
+    lo_h, hi_h = native.unpack_links_6b(slices, n)
+    return lo_h, hi_h, sum(len(s) for s in slices) - len(lo_h)
+
+
 def fetch_links_host(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int):
     """The serial link-fetch policy: a 64K-granular cut of the live
     prefix, 6-byte packing per :func:`pack_handoff`, dead-sentinel
     filter.  Returns (lo_h, hi_h int32 numpy arrays, packed).  Span
     ``handoff.fetch`` (attributes ``links``, the slots fetched,
-    ``packed`` and ``bytes``, counted in :data:`handoff_bytes`)."""
+    ``packed`` and ``bytes``, counted in :data:`handoff_bytes`; packed,
+    also ``dead`` of :func:`unpack_handoff`)."""
     cut = min(int(lo.shape[0]), -(-live // (1 << 16)) * (1 << 16))
     packed = pack_handoff(n, lo.device)
     with obs.span("handoff.fetch", links=cut, packed=packed) as sp:
         if packed:
             buf = pack_links_6b(lo[:cut], hi[:cut]).cpu().numpy()
             nbytes = buf.nbytes
-            lo_h, hi_h = unpack_links_6b(buf[:live])
+            lo_h, hi_h, dead = unpack_handoff([buf[:live]], n)
+            sp.annotate(dead=dead)
         else:
             lo_h = lo[:cut].cpu().numpy()
             hi_h = hi[:cut].cpu().numpy()
             nbytes = lo_h.nbytes + hi_h.nbytes
-            lo_h, hi_h = lo_h[:live], hi_h[:live]
+            # a few scattered dead slots may remain in the prefix
+            keep = lo_h[:live] < n
+            lo_h, hi_h = lo_h[:live][keep], hi_h[:live][keep]
         _count_handoff(nbytes)
         sp.annotate(bytes=nbytes)
-    keep = lo_h < n  # a few scattered dead slots may remain in the prefix
-    return lo_h[keep], hi_h[keep], packed
+    return lo_h, hi_h, packed
 
 
 def _slice_rows(buf: torch.Tensor, start: int, length: int) -> torch.Tensor:
@@ -557,6 +571,7 @@ class _StreamFetcher:
 
     def __init__(self, lo: torch.Tensor, hi: torch.Tensor, n: int,
                  live: int, slice_links: int, autostart: bool = True):
+        self.n = n
         self.packed = pack_handoff(n, lo.device)
         self.bytes_per_link = 6 if self.packed else 8
         width = int(lo.shape[0])  # pow2-padded
@@ -667,11 +682,15 @@ class _StreamFetcher:
         self.join(timeout, mark_failed=False)
 
     def _unpack(self, part: list):
+        """Host (lo, hi) of fetched slices, in span ``handoff.unpack``
+        (attributes ``links``, the links returned; packed, also ``dead``
+        of :func:`unpack_handoff`)."""
         if not part:
             return np.empty(0, np.int32), np.empty(0, np.int32)
         with obs.timed("handoff.unpack", self.unpack_s) as sp:
             if self.packed:
-                lo_h, hi_h = unpack_links_6b(np.concatenate(part))
+                lo_h, hi_h, dead = unpack_handoff(part, self.n)
+                sp.annotate(dead=dead)
             else:
                 los, his = zip(*part)
                 lo_h, hi_h = np.concatenate(los), np.concatenate(his)
@@ -679,8 +698,9 @@ class _StreamFetcher:
         return lo_h, hi_h
 
     def collect(self) -> tuple[np.ndarray, np.ndarray]:
-        """Host (lo, hi) of every fetched slice (unfiltered: dead
-        sentinel slots remain; callers mask lo < n)."""
+        """Host (lo, hi) of every fetched slice: packed, the dead
+        sentinel slots already dropped; in int32 pairs unfiltered
+        (callers mask lo < n)."""
         return self._unpack(list(self._slices))
 
 
@@ -723,8 +743,8 @@ class _WindowStream(_StreamFetcher):
 
     def window(self, k: int, timeout_s: float | None = None):
         """Block until window k has landed, then return its host (lo, hi)
-        int arrays (unfiltered) and free its slices.  Raises RuntimeError
-        on a failed or wedged stream."""
+        int arrays (filtered as :meth:`collect`'s) and free its slices.
+        Raises RuntimeError on a failed or wedged stream."""
         lo_w, hi_w = self.collect_range(self._cuts[k], self._cuts[k + 1],
                                         timeout_s)
         with self._cv:
@@ -843,9 +863,11 @@ def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
         for _ in range(w):
             t0 = time.perf_counter()
             wlo, whi = next(it)
-            keep = wlo < n
-            if not keep.all():
-                wlo, whi = wlo[keep], whi[keep]
+            if stream is None or not stream.packed:
+                # the packed windows came without their dead slots
+                keep = wlo < n
+                if not keep.all():
+                    wlo, whi = wlo[keep], whi[keep]
             fetch_s.append(time.perf_counter() - t0)
             with obs.timed("handoff.fold", fold_s, links=len(wlo)):
                 fold.block(_as_u32(wlo), _as_u32(whi))

@@ -218,7 +218,8 @@ def pack_links_6b(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_links_6b(buf: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Host-side inverse of :func:`pack_links_6b` (numpy)."""
+    """Host-side inverse of :func:`pack_links_6b` (numpy): the plain
+    version of ``native.unpack_links_6b``, which the handoff runs."""
     b = buf.astype(np.int32)
     lo = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
     hi = b[:, 3] | (b[:, 4] << 8) | (b[:, 5] << 16)

@@ -4,8 +4,9 @@ build_graph_hybrid) equals sheep_tpu's (JAX on the CPU), the port's own
 serial arm and the host oracle bit for bit: the window-count sweep, the
 card's window queue forced onto CPU tensors (packed and pair), the serial
 fallback on a fetch or fold failure, the host-seq arm, the reduced
-multiset's prep pst, a partial given order, the fetcher's modes, and the
-speculative arm (stream off, overlap on) run."""
+multiset's prep pst, a partial given order, the fetcher's modes, the
+speculative arm (stream off, overlap on) run, and each packed arm's
+native unpack."""
 
 import sys
 
@@ -20,6 +21,7 @@ from sheep_tpu.core import build_forest, degree_sequence
 
 import sheep_tpu_torch.core.forest as PCF
 import sheep_tpu_torch.ops.build as PB
+from sheep_tpu_torch.obs import trace as obs
 from sheep_tpu_torch.utils import rmat_edges
 
 CPU = torch.device("cpu")
@@ -304,7 +306,11 @@ def test_stream_fetcher_packed_and_pair_modes(stream_env, n):
                            jnp.asarray(hi, jnp.int32), n, live,
                            slice_links=2048)
     rf.join()
-    for g, w in zip(f.collect(), rf.collect()):
+    want = rf.collect()
+    if f.packed:  # the port's packed unpack drops the dead slots itself
+        assert len(got_lo) == live
+        want = tuple(w[want[0] < n] for w in want)
+    for g, w in zip(f.collect(), want):
         np.testing.assert_array_equal(g, w)
     assert (f.slice_len, f.total_slices, f.packed) == \
         (rf.slice_len, rf.total_slices, rf.packed)
@@ -368,3 +374,43 @@ def test_window_stream_under_thread_churn(stream_env):
     got_hi = np.concatenate([g[1] for g in got])
     np.testing.assert_array_equal(got_lo[:live], lo[:live])
     np.testing.assert_array_equal(got_hi[:live], hi[:live])
+
+
+UNPACK_ARMS = {
+    "stream": {"SHEEP_STREAM_DEVICE_WINDOWS": "1",
+               "SHEEP_HANDOFF_WINDOWS": "4", "SHEEP_OVERLAP_SLICE": "2048"},
+    "serial": {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "0"},
+    "spec": {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "1",
+             "SHEEP_OVERLAP_MIN_MB": "0.0001", "SHEEP_OVERLAP_SLICE": "512"},
+}
+
+
+@pytest.mark.parametrize("arm", sorted(UNPACK_ARMS))
+def test_packed_handoff_unpack(stream_env, arm):
+    """Every packed handoff unpacks through ``unpack_handoff``: each
+    unpack's span (``handoff.unpack``, or ``handoff.fetch`` on the serial
+    fetch) counts the dead slots it dropped, and the forest equals the
+    reference's and the oracle's."""
+    n, tail, head = _graph(log_n=10 if arm == "spec" else 12)
+    stream_env.setenv("SHEEP_PACK_HANDOFF", "1")
+    for k, v in UNPACK_ARMS[arm].items():
+        stream_env.setenv(k, v)
+    perf = {}
+    with obs.capture() as cap:
+        got = PB.build_graph_hybrid(tail, head, n, handoff_factor=1,
+                                    perf=perf, device="cpu")
+    assert perf["packed_handoff"] is True
+    unpacks = cap.named("handoff.unpack") + cap.named("handoff.fetch")
+    assert unpacks
+    for sp in unpacks:
+        assert sp.attrs["dead"] >= 0, sp.attrs
+    if arm == "stream":
+        assert perf["stream_mode"] == "windowed"
+        slots = sum(sp.attrs["links"] for sp in cap.named("handoff.slice"))
+        links = cap.named("handoff.unpack")
+        assert sum(sp.attrs["links"] for sp in links) \
+            == perf["handoff_links"]
+        assert sum(sp.attrs["dead"] for sp in links) \
+            == slots - perf["handoff_links"] > 0
+    _same(got, RB.build_graph_hybrid(tail, head, n, handoff_factor=1))
+    _same(got, _oracle(tail, head))
