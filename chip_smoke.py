@@ -35,14 +35,12 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
 6. real size: build_graph_hybrid on rmat_edges(23, 2^26, seed=0)
    (com-LiveJournal scale) on the default tail, the streamed windowed
    handoff, which must report stream_mode "windowed" and 4 windows, once
-   on the serial arm (SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0),
-   again on the default tail, then on the speculative arm
-   (SHEEP_STREAM_HANDOFF=0, the overlap at its CUDA default), which must
-   report its spec_mode and spec_starts; every run equals the host oracle
-   bit for bit.  The first run records the shape (width, E, L, sorted or
-   not, groups) and device time of every K1 call and keeps the first
-   chunk round's input, on which K1's three orders are then timed against
-   the plain version as in phase 3;
+   on the serial arm (SHEEP_STREAM_HANDOFF=0), then again on the default
+   tail; every run equals the host oracle bit for bit.  The first run
+   records the shape (width, E, L, sorted or not, groups) and device
+   time of every K1 call and keeps the first chunk round's input, on
+   which K1's three orders are then timed against the plain version as
+   in phase 3;
 6b. the native host runtime (``native`` line) on the real-size graph:
    the numpy degree order against the fused native sort, the blocked
    fused build against edges_to_links + the plain fold, the links fold on
@@ -50,20 +48,16 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    hybrid, equal to the oracle, with seq and pst from the card
    (pst_source), prefetch_s, pst_wait_s and fold_s; the host's cores and
    the OpenMP runtimes mapped into the process;
-7. the speculative arm forced, through its seams, to hand off the
-   snapshot its side stream fetched: spec_complete (the stream stops the
-   loop) and spec_wait, each 6-byte packed and in int32 pairs, on
-   rmat_edges(18, 2^21, seed=2), each equal to the oracle;
-8. the spec arm's fetch thread alone: 2^24 random links at n = 2^23
-   fetched in slices of 2^18 and 2^21 links, equal to the snapshot, with
-   its breakdown (pinned allocation, copy enqueue, event wait, the
-   copies' device time) and rate;
-9. the out-of-core builds: build_graph_streaming_hosted and
+7. the window stream's fetch thread alone, as one window: 2^24 random
+   links at n = 2^23 fetched in slices of 2^18 and 2^21 links, equal to
+   the table, with its breakdown (pinned allocation, copy enqueue, event
+   wait, the copies' device time) and rate;
+8. the out-of-core builds: build_graph_streaming_hosted and
    build_graph_streaming on hep-th in blocks of 4096 (the golden
    TREEFAQS line), build_graph_streaming on rmat_edges(20, 2^23, seed=1)
    in 4 blocks, and build_graph_streaming_hosted on the real-size graph
    in blocks of 2^24 records, each equal to the oracle;
-9b. the partitioner (``partition`` line): hep-th built by
+8b. the partitioner (``partition`` line): hep-th built by
    build_graph_hybrid on the card (K1 counted), partitioned at 2-9 parts
    with ECV(down) equal to data/hepth-ecv-baseline.json and the golden
    2-part report (edges cut 2811, Vcom 2061, ECV(hash) 1311, ECV(down)
@@ -74,7 +68,7 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    real-size tree partitioned at 2, 16 and 64 parts and evaluated at 2
    and 64, the in-memory evaluator equal to the streamed one, the
    partition and both evaluators timed;
-9c. the CLI (``cli`` line), the user's entry point: ``graph2tree
+8c. the CLI (``cli`` line), the user's entry point: ``graph2tree
    data/hep-th.dat -i -r -f -c`` on the card in process (the golden
    TREEFAQS line, ``Tree is valid.``, K1 counted) and as a process of its
    own (``python -m sheep_tpu_torch.cli.graph2tree``), the same bytes;
@@ -89,9 +83,9 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    process; S2.seq equal to the tool's sequence, T.tre to the oracle bit
    for bit), ``partition_tree S.seq T.tre 2 16 64`` and, with
    SHEEP_EVAL_STREAM=1, ``partition_tree -g`` at 2 parts (ECV(down) equal
-   to phase 9b's), each process timed; the real-size files stay for
+   to phase 8b's), each process timed; the real-size files stay for
    9d;
-9d. the external-memory build (``ext`` line), host code that loads no
+8d. the external-memory build (``ext`` line), host code that loads no
    torch: the reference's published deployment (EXTBENCH_r01.json), an
    R-MAT graph of 2^26 records over 2^20 vertices written in 16 chunks
    (seeds 17+i, no sidecar, 768 MiB), built by ``graph2tree E.dat -o
@@ -101,23 +95,23 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    torch, and the tree must equal the unbudgeted
    in-RAM run's byte for byte), with its wall, records/s and perf
    record; ``plan --explain`` on E.dat under the budget (it must choose
-   ext); ``graph2tree G.dat --ext -s S.seq`` on 9c's files at the default
+   ext); ``graph2tree G.dat --ext -s S.seq`` on 8c's files at the default
    block and, unbudgeted, with SHEEP_EXT_BLOCK=4M, each equal to ``-i
    -r``'s T.tre byte for byte; the fault-tolerant build on the real-size
    records with ladder single -> ext, ``edges_path`` G.dat and 4M
    blocks, the single rung's second dispatch failing for good (K1
    launched on single, a degrade single -> ext, ext-block events, equal
    to the oracle);
-9e. the tournament supervisor (``supervise`` line), host code that
+8e. the tournament supervisor (``supervise`` line), host code that
    loads no torch: ``python -m sheep_tpu_torch.cli.supervise G.dat -w 4
-   -d S -o T_sup.tre`` on 9c's real-size file, its process tree sampled
+   -d S -o T_sup.tre`` on 8c's real-size file, its process tree sampled
    every 5 ms (``TreeSampler``: each leg's peak RSS, torch mapped into
-   none), the tree equal to 9c's T.tre and the oracle, each leg once;
+   none), the tree equal to 8c's T.tre and the oracle, each leg once;
    then with ``SHEEP_FAULT_PLAN=kill@0:1,corrupt@1:0,stop@1:0`` (exit 1
    after all three fired) and resumed in the same ``-d``: only the legs
    the manifest had not finished re-dispatched, the same tree; then
    ``supervise --status --json``;
-9f. the distributed out-of-core build (``distext`` line), host code: the
+8f. the distributed out-of-core build (``distext`` line), host code: the
    reference's DISTEXTBENCH shape (a file 4x the per-leg budget over 2
    legs; at 192M a leg over EXTBENCH's 2^26 records, the card host's
    interpreter leaving too little of 96M, PERF.md §4): ``graph2tree
@@ -127,26 +121,26 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    checkpoint lands, re-dispatched alone and resumed from the
    checkpoint; the tight-budget auto-route (``graph2tree.main`` in this
    process, no ``--distext``), each tree the same;
-9f'. the remote build workers (``remote`` line), host code in a child
+8f'. the remote build workers (``remote`` line), host code in a child
    process (``python -m sheep_tpu_torch.scripts.remote_drive run``, its
    process tree sampled): two worker processes with state dirs of their
-   own, ``graph2tree --distext`` on 9f's file with its legs shipped to
-   them (SHEEP_WORKER_TRANSPORT=ship) equal to 9f's tree and the in-RAM
+   own, ``graph2tree --distext`` on 8f's file with its legs shipped to
+   them (SHEEP_WORKER_TRANSPORT=ship) equal to 8f's tree and the in-RAM
    oracle, again with one artifact return torn (a netfault at the
    ``wart`` site) re-dispatching exactly that leg, ``supervise
    --status`` listing the remote legs; each worker's peak RSS beside the
    budget, torch mapped into none;
-9g. the analysis tools (``tools`` line), host code: the six tools
+8g. the analysis tools (``tools`` line), host code: the six tools
    (``tree2dot``, ``tree2adj``, ``graph2adj``, ``vfennel``, ``efennel``,
    ``read_partition``), each a process started as the ``util/`` shims
    start the reference's, on hep-th (the golden lines: ECV(down) 521,
    2811 edges cut, sizes 3409/4201), then ``vfennel``, ``efennel`` and
-   ``read_partition`` on 9c's 2^23 x 8 G.dat (read_partition's report
-   equal to 9b's at 2 parts); each one's wall and sampled peak RSS, torch
+   ``read_partition`` on 8c's 2^23 x 8 G.dat (read_partition's report
+   equal to 8b's at 2 parts); each one's wall and sampled peak RSS, torch
    mapped into none;
-9h. the serve store (``serve`` line), host code in a child process that
+8h. the serve store (``serve`` line), host code in a child process that
    never loads torch (``python -m sheep_tpu_torch.scripts.serve_drive
-   run``, its process tree sampled): ``ServeCore.bootstrap`` on 9c's
+   run``, its process tree sampled): ``ServeCore.bootstrap`` on 8c's
    T.tre/S2.seq (built on the card through K1) with G.dat as the graph,
    2 parts; 2^16 inserts of ``rmat_edges(23, 2^16, seed=5)`` in batches
    of 64 from 4 threads beside part and subtree queries of 2^10 vids,
@@ -157,10 +151,10 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    resumed, equal to it; ``ecv()`` equal to the evaluator; ``fsck`` of
    the state dirs passing and of a WAL with one byte flipped failing;
    bootstrap, insert, query, fsync, recovery and re-sequence figures;
-9h'. the serve daemon as a cluster (``daemon`` line), host code in a
+8h'. the serve daemon as a cluster (``daemon`` line), host code in a
    child process (``python -m sheep_tpu_torch.scripts.daemon_drive
-   run``, its process tree sampled): 9h's recovered 2^23 store led by a
-   ``cli.serve`` process, two followers bootstrapped over the wire, 9h's
+   run``, its process tree sampled): 8h's recovered 2^23 store led by a
+   ``cli.serve`` process, two followers bootstrapped over the wire, 8h's
    2^20 store a second tenant evicted and restored; 2^14 inserts in
    batches of 64 from 4 clients beside follower reads, the leader killed
    at its 128th insert, a follower elected, the killed node back as a
@@ -168,11 +162,11 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
    three equal state crcs, ``supervise --status --json`` agreeing;
    SCRUB, a CORRUPTed follower quarantined and healed; fsck of every
    state dir; torch mapped into none;
-9h''. the routed fleet (``fleet`` line), host code in a child process
+8h''. the routed fleet (``fleet`` line), host code in a child process
    (``python -m sheep_tpu_torch.scripts.fleet_drive run``, its process
-   tree sampled), the reference's FLEETBENCH at 9h's sizes: two
-   single-node clusters (``cli.serve``), 9h's 2^23 store as the hot
-   tenant on the cluster the ring gives it, copies of 9h's 2^20 store as
+   tree sampled), the reference's FLEETBENCH at 8h's sizes: two
+   single-node clusters (``cli.serve``), 8h's 2^23 store as the hot
+   tenant on the cluster the ring gives it, copies of 8h's 2^20 store as
    each cluster's default tenant, a warm tenant beside hot and a cold one
    on the other cluster, behind ``cli.route`` with ``SHEEP_REBALANCE=1``;
    inserts on all three and 16-vid reads on hot through the router; the
@@ -193,7 +187,7 @@ this checkout.  Phases (any failure raises, so the exit code is non-zero):
     memory; its trace is kept for 10c;
 10c. the ``trace`` tool (``trace`` line), as processes: on 10's trace
     (the rung explanation names the plan and every rung the build's
-    events record, ``--json`` the same lines), and ``--merge`` of 9h's
+    events record, ``--json`` the same lines), and ``--merge`` of 8h's
     two store processes (the killed one and its restart), where the
     killed request's id joins records of both;
 10b. the sharded mesh build (``mesh`` line): the port's mesh given W
@@ -259,8 +253,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from portbench.harness.peaks import HBM_BYTES_PER_S, k1_bound_s
+from portbench.harness.trace import K1Recorder as DescentRecorder
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 GOLDEN_TREEFAQS = ("TREEFAQS: width:24\troots:581\n"
                    "\tvheight:754\teheight:2330\n"
                    "\tverts:7610\tedges:15751\n"
@@ -354,12 +350,6 @@ def k1_inputs(n: int, e: int, seed: int, device: torch.device):
     return lo, hi
 
 
-def k1_bound_ms(e: int, levels: int, width: int) -> float:
-    """K1's least time: lo, hi read and out written once (12 bytes a
-    link), each table read once, over the card's memory rate."""
-    return (12 * e + 4 * levels * width) / HBM_BYTES_PER_S * 1e3
-
-
 def k1_orders(tables, lo, hi, device, sorted_links: bool = False) -> dict:
     """K1's three orders on one input, each exactly equal to
     jump_group_plain and timed in turns with it: the planned groups (the
@@ -385,7 +375,7 @@ def k1_orders(tables, lo, hi, device, sorted_links: bool = False) -> dict:
             raise AssertionError(f"K1 ({name[:-3]} order) disagrees with "
                                  f"its plain version: max_abs_err={err}")
     return {"groups": groups, **time_turns(fns, device),
-            "bound_ms": k1_bound_ms(int(lo.shape[0]), levels, width)}
+            "bound_ms": k1_bound_s(int(lo.shape[0]), levels, width) * 1e3}
 
 
 def k1_case(name: str, lo, hi, n: int, levels: int, device, timed: bool,
@@ -698,13 +688,8 @@ def oracle(tail, head):
     return want_seq, want, time.perf_counter() - t0
 
 
-#: the serial arm's knobs (the reference's SHEEP_STREAM_HANDOFF=0
-#: SHEEP_OVERLAP_HANDOFF=0)
-SERIAL_ARM = {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "0"}
-
-
-#: the speculative arm: stream off, the overlap at its CUDA default (on)
-SPEC_ARM = {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": None}
+#: the serial arm's knob
+SERIAL_ARM = {"SHEEP_STREAM_HANDOFF": "0"}
 
 
 @contextlib.contextmanager
@@ -726,19 +711,21 @@ def env_set(values: dict):
                 os.environ[k] = v
 
 
-class K1Recorder:
-    """Records every K1 call of one build, with no knob in the package: it
-    wraps the descent seam ``ops.forest._lift_descend`` and the launcher
-    ``ops.fused_jump.jump_group_cuda`` while it is entered.  Per descent:
-    the table width, E, L, whether the links came sorted, the launches it
-    made (one per table group) and their device time (CUDA events around
-    each launch); and a copy of the first chunk round's input (the second
-    descent: the first is the jump-only opener), moved to host memory when
-    the recorder exits."""
+class K1Recorder(DescentRecorder):
+    """The benchmark's recorder of K1's descents on the card
+    (``descents``), which wraps the descent seam
+    ``ops.forest._lift_descend`` while entered, with no knob in the
+    package.  For this script it also records, per descent, the table
+    width, E, L, whether the links came sorted, the launches it made (one
+    per table group) and their device time (CUDA events around each
+    launch of ``ops.fused_jump.jump_group_cuda``), and keeps a copy of the
+    first chunk round's input (the second descent: the first is the
+    jump-only opener), moved to host memory when the recorder exits."""
 
     keep_call = 1
 
     def __init__(self):
+        super().__init__()
         self.calls: list = []
         self.events: list = []
         self.kept: dict | None = None
@@ -746,8 +733,9 @@ class K1Recorder:
     def __enter__(self):
         from sheep_tpu_torch.ops import forest, fused_jump
 
-        self._saved = (forest._lift_descend, fused_jump.jump_group_cuda)
-        descend, launch = self._saved
+        super().__enter__()
+        self._wrapped = (forest._lift_descend, fused_jump.jump_group_cuda)
+        descend, launch = self._wrapped
 
         def recorded_launch(tables, lo, hi, out=None):
             start = torch.cuda.Event(enable_timing=True)
@@ -779,7 +767,8 @@ class K1Recorder:
     def __exit__(self, *exc):
         from sheep_tpu_torch.ops import forest, fused_jump
 
-        forest._lift_descend, fused_jump.jump_group_cuda = self._saved
+        forest._lift_descend, fused_jump.jump_group_cuda = self._wrapped
+        super().__exit__(*exc)
         if self.kept is not None:
             # host memory from here on, so the later builds' peak device
             # memory does not count it
@@ -816,9 +805,9 @@ def real_inputs(log_n: int, log_e: int, seed: int):
 def real_size_phase(device: torch.device, log_n: int = 23,
                     log_e: int = 26, runs: int = 2, windows: int = 4,
                     data=None):
-    """The real-size hybrid on every arm: the default streamed tail first
-    and third, the serial arm second, the speculative arm fourth; returns
-    the runs' records and the first run's K1 recorder.  ``data``: the
+    """The real-size hybrid on both arms: the default streamed tail first
+    and third, the serial arm second; returns the runs' records and the
+    first run's K1 recorder.  ``data``: the
     (tail, head, want_seq, want) of :func:`real_inputs`, made here if
     None."""
     from sheep_tpu_torch.ops.build import build_graph_hybrid
@@ -828,10 +817,9 @@ def real_size_phase(device: torch.device, log_n: int = 23,
     recs = []
     recorder = K1Recorder()
     # the default tail (streamed) runs first and third, the serial arm
-    # between, so the two arms meet on one card in turns; then the
-    # speculative arm
-    arms = ["stream"] * (runs - 1) + ["serial", "stream", "spec"]
-    envs = {"stream": {}, "serial": SERIAL_ARM, "spec": SPEC_ARM}
+    # between, so the two arms meet on one card in turns
+    arms = ["stream"] * (runs - 1) + ["serial", "stream"]
+    envs = {"stream": {}, "serial": SERIAL_ARM}
     for run, arm in enumerate(arms):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -861,11 +849,6 @@ def real_size_phase(device: torch.device, log_n: int = 23,
                 f"{windows} windows: stream_mode="
                 f"{perf.get('stream_mode')} "
                 f"fetch_windows={perf.get('fetch_windows')}")
-        if arm == "spec" and ("spec_mode" not in perf
-                              or "spec_starts" not in perf
-                              or "stream_mode" in perf):
-            raise AssertionError(f"real-size hybrid: the speculative arm "
-                                 f"did not run: {perf}")
         recs.append(rec)
     if recorder.kept is None:
         raise AssertionError(f"real-size hybrid: no chunk round reached K1 "
@@ -873,120 +856,16 @@ def real_size_phase(device: torch.device, log_n: int = 23,
     return recs, recorder
 
 
-@contextlib.contextmanager
-def spec_forced(outcome: str):
-    """Force one outcome of the speculative handoff without a knob in the
-    package, through its seams.  "spec_complete": at each chunk after its
-    start the stream is joined (left to land) before the policy looks, so
-    the loop stops on a finished stream.  "spec_wait": each stream holds
-    its last slice until a caller joins it, and at each chunk and at the
-    loop's end the policy looks only once the stream has fetched the
-    rest, so the loop ends with the stream one slice short and
-    ``complete`` waits it out.  Either way the stream's slices copy on the
-    side stream while the loop's next chunk runs."""
-    from sheep_tpu_torch.ops import build
-
-    saved = (build._StreamFetcher, build._SpecHandoff.on_chunk,
-             build._SpecHandoff.complete)
-    on_chunk, complete = saved[1], saved[2]
-
-    class LastSliceHeld(saved[0]):
-        def __init__(self, *args, **kwargs):
-            self._gate = threading.Event()
-            self.at_gate = threading.Event()
-            super().__init__(*args, **kwargs)
-
-        def _wait_turn(self, i):
-            if i == self.total_slices - 1:
-                self.at_gate.set()
-                self._gate.wait(timeout=300)
-
-        def join(self, timeout=None, mark_failed=True):
-            self._gate.set()
-            return super().join(timeout, mark_failed)
-
-    def settle(spec):
-        if spec.active is None:
-            return
-        if outcome == "spec_complete":
-            spec.active.join(timeout=300)
-        else:
-            spec.active.at_gate.wait(timeout=300)
-
-    def settled_chunk(self, lo, hi, live):
-        settle(self)
-        return on_chunk(self, lo, hi, live)
-
-    def settled_complete(self, lo, hi, live):
-        settle(self)
-        return complete(self, lo, hi, live)
-
-    if outcome not in ("spec_complete", "spec_wait"):
-        raise ValueError(f"spec_forced: no outcome {outcome!r}")
-    if outcome == "spec_wait":
-        build._StreamFetcher = LastSliceHeld
-    build._SpecHandoff.on_chunk = settled_chunk
-    build._SpecHandoff.complete = settled_complete
-    try:
-        yield
-    finally:
-        (build._StreamFetcher, build._SpecHandoff.on_chunk,
-         build._SpecHandoff.complete) = saved
-
-
-def spec_outcomes_phase(device: torch.device, log_n: int = 18,
-                        log_e: int = 21, seed: int = 2):
-    """The speculative arm handing off a snapshot that its stream fetched
-    on the side stream: spec_complete (the stream stops the loop) and
-    spec_wait, each 6-byte packed and in int32 pairs (where the stream
-    reads the loop's own lo and hi), on rmat_edges(18, 2^21, seed=2);
-    each forest equal to the oracle, K1 launched.  Small knobs make a
-    stream start at this size (SHEEP_OVERLAP_MIN_MB=0.01, 16K-link
-    slices, SHEEP_OVERLAP_SPEC_FACTOR=64), and the handoff factor is the
-    card's default, 3, so a chunk follows the stream's start."""
-    from sheep_tpu_torch.ops.build import build_graph_hybrid
-
-    tail, head, want_seq, want = real_inputs(log_n, log_e, seed)
-    knobs = {**SPEC_ARM, "SHEEP_OVERLAP_MIN_MB": "0.01",
-             "SHEEP_OVERLAP_SLICE": str(1 << 14),
-             "SHEEP_OVERLAP_SPEC_FACTOR": "64",
-             "SHEEP_HANDOFF_FACTOR": "3"}
-    recs = []
-    for outcome in ("spec_complete", "spec_wait"):
-        for packed in (True, False):
-            perf: dict = {}
-            env = {**knobs, "SHEEP_PACK_HANDOFF": None if packed else "0"}
-            with env_set(env), spec_forced(outcome):
-                (seq, forest), wall, launches = counted_build(
-                    lambda: build_graph_hybrid(tail, head, device=device,
-                                               perf=perf),
-                    f"spec arm ({outcome})")
-            rec = {"outcome": outcome, "records": len(tail), "wall_s": wall,
-                   "k1_launches": launches, **perf}
-            log("spec outcome " + json.dumps(rec))
-            if not forest_equal(seq, forest, want_seq, want):
-                raise AssertionError(f"spec arm ({outcome}, packed="
-                                     f"{packed}) differs from the oracle")
-            stopped = outcome == "spec_complete"
-            if (perf.get("spec_mode") != outcome
-                    or perf.get("packed_handoff") is not packed
-                    or perf.get("spec_stopped_loop") is not stopped):
-                raise AssertionError(f"spec arm: wanted {outcome} with "
-                                     f"packed={packed}, got {perf}")
-            recs.append(rec)
-    return recs
-
-
 def fetch_phase(device: torch.device, n: int = 1 << 23, links: int = 1 << 24,
                 slices=(1 << 18, 1 << 21)):
-    """The speculative arm's fetch thread (``ops.build._StreamFetcher``)
-    alone on the card, nothing else running: a snapshot of 2^24 random
-    links at n = 2^23 (6-byte packed, 100 MB) fetched in slices of 2^18
-    links (the default) and 2^21, its host copy equal to the snapshot.
+    """The window stream's fetch thread (``ops.build._WindowStream``, one
+    window) alone on the card, nothing else running: a table of 2^24
+    random links at n = 2^23 (6-byte packed, 100 MB) fetched in slices of
+    2^18 links (the default) and 2^21, its host copy equal to the table.
     Logs the thread's breakdown (``ops.build.fetch_phases``: pinned
     allocation, copy enqueue and event wait on the host, the copies'
     device time) and its rate."""
-    from sheep_tpu_torch.ops.build import _StreamFetcher
+    from sheep_tpu_torch.ops.build import _WindowStream
 
     g = torch.Generator(device=device).manual_seed(5)
     lo = torch.randint(0, n, (links,), generator=g, device=device)
@@ -999,14 +878,14 @@ def fetch_phase(device: torch.device, n: int = 1 << 23, links: int = 1 << 24,
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        f = _StreamFetcher(lo, hi, n, links, slice_links)
+        f = _WindowStream(lo, hi, n, links, slice_links, windows=1)
         if f.join(timeout=600) or f.failed:
             raise AssertionError(f"fetch: the stream did not finish "
                                  f"({f.error!r})")
         wall = time.perf_counter() - t0
-        got_lo, got_hi = f.collect()
-        if not (np.array_equal(got_lo[:links], want_lo)
-                and np.array_equal(got_hi[:links], want_hi)):
+        got_lo, got_hi = f.window(0)
+        if not (np.array_equal(got_lo, want_lo)
+                and np.array_equal(got_hi, want_hi)):
             raise AssertionError("fetch: the host copy differs from the "
                                  "snapshot")
         rec = {"slice_links": slice_links, "packed": f.packed,
@@ -3416,7 +3295,6 @@ def main() -> int:
     del kept
     recorder.kept = None
     native_phase(device, real_data)
-    spec_outcomes_phase(device)
     fetch_phase(device)
     small_data = real_inputs(20, 23, 1)
     streaming_phase(device, real_data, small_data)

@@ -25,17 +25,14 @@ handoff whose fold counts pst itself.  Any stream failure falls back to a
 serial fetch of the same device arrays, and ``perf["stream_mode"]`` says
 so.
 
-``SHEEP_STREAM_HANDOFF=0`` selects the serial arm: one fold of one
-reduced link set.  With the overlap on (:func:`_overlap_enabled`, the
-default on CUDA) that set comes from the speculative overlapped snapshot
-(:class:`_SpecHandoff`): once the live links fall under a threshold, a
-background stream starts fetching the current snapshot while the reduce
-loop goes on, and the loop stops as soon as a stream has landed.  Any
-snapshot, or union of snapshots, hands off exactly, since every round
-preserves threshold connectivity.  ``SHEEP_OVERLAP_HANDOFF=0`` makes the
-serial arm fetch once after the loop.  Where the reference branches on
-the JAX platform, the port branches on ``device.type``; the env knobs keep
-their meanings.
+``SHEEP_STREAM_HANDOFF=0`` selects the serial arm (:func:`_serial_tail`):
+one fetch of the reduced live set after the loop and one fold, the same
+code that the stream's failure falls back to.  Where the reference
+branches on the JAX platform, the port branches on ``device.type``; the
+env knobs keep their meanings.  The reference's speculative overlapped
+snapshot (its ``_SpecHandoff``) has no counterpart here, so the port reads
+none of that arm's knobs, and ``SHEEP_STREAM_HANDOFF=0`` is the serial
+fetch on both devices.
 """
 
 from __future__ import annotations
@@ -64,9 +61,9 @@ from .sort import (degree_histogram, degree_order, edge_links,
 #: the bytes every handoff fetch has copied off the links' device since
 #: the last reset (set it to 0 to reset): 6 a link packed, 8 unpacked
 #: (:func:`pack_handoff`), each fetched slot counted once, dead ones in
-#: the fetched prefix too; on the streamed tail, the serial fetch and the
-#: speculative snapshot alike.  The CPU's host-split windows read the
-#: links in place and count nothing
+#: the fetched prefix too; on the streamed tail and the serial fetch
+#: alike.  The CPU's host-split windows read the links in place and count
+#: nothing
 handoff_bytes = 0
 _handoff_lock = threading.Lock()
 
@@ -225,17 +222,13 @@ def build_graph_hybrid(tail, head, num_vertices: int | None = None,
     pst_wait_s, prefetch_s (the seq/pst prefetch thread's own time, when
     it runs; prefetch_seq_s and prefetch_pst_s split it when it
     recomputes them from the host edges), k1_bytes, handoff_bytes (the
-    bytes the handoff copied off the device), fetch_windows and,
-    from the streamed tail, stream_mode, window_fetch_s, window_fold_s,
-    unpack_s, overlap_s and overlap_frac, or, from the serial arm's
-    speculative snapshot,
-    overlap, spec_starts, spec_restarts, spec_wasted_mb,
-    spec_stopped_loop, spec_mode, spec_start_live and spec_fetch_phases
-    (:func:`fetch_phases`).  Spans (``obs.trace``): ``build.prep`` (the
-    upload and the link mapping), ``build.prefetch`` on the prefetch
-    thread (attributes ``source``, as pst_source, and ``bytes``, those
-    copied from the device), then the loop and the tail's
-    (:func:`reduce_and_finish_native`).
+    bytes the handoff copied off the device), fetch_windows and, from
+    the streamed tail, stream_mode, window_fetch_s, window_fold_s,
+    unpack_s, overlap_s and overlap_frac.  Spans (``obs.trace``):
+    ``build.prep`` (the upload and the link mapping), ``build.prefetch``
+    on the prefetch thread (attributes ``source``, as pst_source, and
+    ``bytes``, those copied from the device), then the loop and the
+    tail's (:func:`reduce_and_finish_native`).
     """
     device = resolve_device(device)
     if handoff_factor is None:
@@ -409,13 +402,8 @@ def pack_handoff(n: int, device: torch.device) -> bool:
 
 def stream_handoff_enabled() -> bool:
     """The streamed windowed handoff gate (SHEEP_STREAM_HANDOFF
-    overrides; default on).  An explicit SHEEP_OVERLAP_HANDOFF=1 without
-    an explicit stream choice turns it off, as in the reference, so that
-    arm names what it runs (the serial arm's speculative snapshot)."""
-    v = os.environ.get("SHEEP_STREAM_HANDOFF", "")
-    if v != "":
-        return v == "1"
-    return os.environ.get("SHEEP_OVERLAP_HANDOFF", "") != "1"
+    overrides; default on); off selects the serial tail."""
+    return os.environ.get("SHEEP_STREAM_HANDOFF", "") in ("", "1")
 
 
 def handoff_windows(live: int, device: torch.device) -> int:
@@ -442,17 +430,6 @@ def host_seq_mode(device: torch.device) -> bool:
     if v != "":
         return v == "1"
     return device.type == "cpu"
-
-
-def _overlap_enabled(device: torch.device) -> bool:
-    """The serial arm's speculative overlapped snapshot gate
-    (SHEEP_OVERLAP_HANDOFF overrides): on for CUDA, where the link fetch
-    is a real transfer worth hiding behind device rounds, off on the CPU,
-    where the fetch is a view."""
-    v = os.environ.get("SHEEP_OVERLAP_HANDOFF", "")
-    if v != "":
-        return v == "1"
-    return device.type != "cpu"
 
 
 def unpack_handoff(slices: list, n: int):
@@ -542,35 +519,33 @@ def fetch_phases() -> dict:
             "copy_s": 0.0, "wait_s": 0.0, "device_ms": 0.0}
 
 
-def merge_phases(parts) -> dict:
-    """The sum of several :func:`fetch_phases` dicts, rounded."""
-    total = fetch_phases()
-    for part in parts:
-        for k in total:
-            total[k] += part[k]
-    return {k: v if isinstance(v, int) else round(v, 4)
-            for k, v in total.items()}
+class _WindowStream:
+    """The window queue of the streamed handoff: a background fetch of a
+    hi-SORTED link table, which holds every live link in its first
+    ``live`` slots, as fixed-length slices grouped into W equal-count
+    windows (contiguous count-slices of the sorted table are the
+    hi-quantile windows).  The fetch thread runs at most
+    :data:`PREFETCH` windows ahead of the fold, so resident host memory is
+    O(live / W * PREFETCH); :meth:`window` hands window k to the fold and
+    frees its slices while k+1 keeps streaming.
 
-
-class _StreamFetcher:
-    """Background slice-streamed device->host fetch of one link snapshot.
-
-    The snapshot (lo, hi) holds every live link in its first ``live``
-    slots.  Transfers run as fixed-length slices of a 6-byte-packed buffer
-    (n < 2^24, per :func:`pack_handoff`; int32 pairs otherwise), so
-    progress is observable between slices and an abort loses at most one
-    slice.  On CUDA the fetch thread copies on its own side stream, which
-    first waits on an event recorded on the caller's current stream after
-    the pack, and it keeps the packed buffer alive (``record_stream``)
-    until it ends.  In the int32-pair mode the buffers are the snapshot's
-    own lo and hi, not copies: the same event orders the side stream after
-    their producer, ``record_stream`` keeps the caching allocator from
-    handing their memory to the caller's later kernels while the copies
-    run, and the reduce loop never writes a snapshot it handed out.
+    Slices cross 6-byte packed (n < 2^24, per :func:`pack_handoff`) or as
+    int32 pairs, so progress is observable between slices and an abort
+    loses at most one slice.  On CUDA the fetch thread copies on its own
+    side stream, which first waits on an event recorded on the caller's
+    current stream after the pack, and it keeps the device buffers alive
+    (``record_stream``) until it ends.  In the int32-pair mode the buffers
+    are the table's own lo and hi, not copies: the same event orders the
+    side stream after their producer, and ``record_stream`` keeps the
+    caching allocator from handing their memory to the caller's later
+    kernels while the copies run.
     """
 
+    #: windows in flight beyond the one being folded
+    PREFETCH = 2
+
     def __init__(self, lo: torch.Tensor, hi: torch.Tensor, n: int,
-                 live: int, slice_links: int, autostart: bool = True):
+                 live: int, slice_links: int, windows: int):
         self.n = n
         self.packed = pack_handoff(n, lo.device)
         self.bytes_per_link = 6 if self.packed else 8
@@ -586,7 +561,7 @@ class _StreamFetcher:
         self.failed = False
         self.error: Exception | None = None  # what ended the thread
         self._slice_s: list = []  # per-slice fetch seconds
-        self.unpack_s: list = []  # per-collect unpack seconds
+        self.unpack_s: list = []  # per-window unpack seconds
         self.phases = fetch_phases()
         self._abort = False
         self._slices: list = []
@@ -600,17 +575,13 @@ class _StreamFetcher:
         if self._device.type == "cuda":
             self._ready = torch.cuda.Event()
             self._ready.record(torch.cuda.current_stream(self._device))
+        self._cv = threading.Condition()
+        self._consumed = -1  # highest window handed to the fold
+        w = max(1, min(windows, self.total_slices))
+        self.windows = w
+        self._cuts = [(k * self.total_slices) // w for k in range(w + 1)]
         self._thread = threading.Thread(target=self._run, daemon=True)
-        if autostart:
-            self._thread.start()
-
-    # seams of the window queue (_WindowStream): gate a slice before its
-    # fetch, observe one landing.  Here: free-running.
-    def _wait_turn(self, i: int) -> None:
-        pass
-
-    def _on_slice(self) -> None:
-        pass
+        self._thread.start()
 
     @property
     def busy_s(self) -> float:
@@ -634,11 +605,16 @@ class _StreamFetcher:
             self.failed = True
         finally:
             self._dev = None  # release the device buffer promptly
-            self._on_slice()
+            with self._cv:
+                self._cv.notify_all()
 
     def _fetch_all(self, side) -> None:
         for i in range(self.total_slices):
-            self._wait_turn(i)
+            with self._cv:  # at most PREFETCH windows ahead of the fold
+                while (not self._abort
+                       and bisect.bisect_right(self._cuts, i) - 1
+                       > self._consumed + 1 + self.PREFETCH):
+                    self._cv.wait(0.5)
             if self._abort:
                 return
             start = i * self.slice_len
@@ -653,98 +629,27 @@ class _StreamFetcher:
             self.phases["busy_s"] += self._slice_s[-1]
             self._slices.append(got[0] if self.packed else tuple(got))
             self.done_slices = i + 1
-            self._on_slice()
+            with self._cv:
+                self._cv.notify_all()
 
-    def finished(self) -> bool:
-        return not self.failed and self.done_slices >= self.total_slices
-
-    def remaining_bytes(self) -> int:
-        return (self.total_slices - self.done_slices) * self.slice_len \
-            * self.bytes_per_link
-
-    def fetched_bytes(self) -> int:
-        return self.done_slices * self.slice_len * self.bytes_per_link
-
-    def join(self, timeout: float | None = None,
-             mark_failed: bool = True) -> bool:
-        """Wait for the stream; True if it is STILL RUNNING afterwards
-        (then marked failed unless ``mark_failed`` is False)."""
+    def join(self, timeout: float | None = None) -> bool:
+        """Wait for the fetch thread; True if it is STILL RUNNING
+        afterwards."""
         self._thread.join(timeout)
-        alive = self._thread.is_alive()
-        if alive and mark_failed:
-            self.failed = True
-        return alive
+        return self._thread.is_alive()
 
     def abort(self, timeout: float = 5.0) -> None:
         """Stop at the next slice boundary and wait briefly; the slices
         that landed stay, and a healthy stream is not marked failed."""
         self._abort = True
-        self.join(timeout, mark_failed=False)
-
-    def _unpack(self, part: list):
-        """Host (lo, hi) of fetched slices, in span ``handoff.unpack``
-        (attributes ``links``, the links returned; packed, also ``dead``
-        of :func:`unpack_handoff`)."""
-        if not part:
-            return np.empty(0, np.int32), np.empty(0, np.int32)
-        with obs.timed("handoff.unpack", self.unpack_s) as sp:
-            if self.packed:
-                lo_h, hi_h, dead = unpack_handoff(part, self.n)
-                sp.annotate(dead=dead)
-            else:
-                los, his = zip(*part)
-                lo_h, hi_h = np.concatenate(los), np.concatenate(his)
-            sp.annotate(links=len(lo_h))
-        return lo_h, hi_h
-
-    def collect(self) -> tuple[np.ndarray, np.ndarray]:
-        """Host (lo, hi) of every fetched slice: packed, the dead
-        sentinel slots already dropped; in int32 pairs unfiltered
-        (callers mask lo < n)."""
-        return self._unpack(list(self._slices))
-
-
-class _WindowStream(_StreamFetcher):
-    """The window queue of the streamed handoff: a hi-SORTED link table
-    streams as fixed-length slices grouped into W equal-count windows
-    (contiguous count-slices of the sorted table are the hi-quantile
-    windows), and the fetch thread runs at most :data:`PREFETCH` windows
-    ahead of the fold.  Resident host memory is O(live / W * PREFETCH);
-    :meth:`window` hands window k to the fold and frees its slices while
-    k+1 keeps streaming.
-    """
-
-    #: windows in flight beyond the one being folded
-    PREFETCH = 2
-
-    def __init__(self, lo, hi, n: int, live: int, slice_links: int,
-                 windows: int):
-        super().__init__(lo, hi, n, live, slice_links, autostart=False)
-        self._cv = threading.Condition()
-        self._consumed = -1  # highest window handed to the fold
-        w = max(1, min(windows, self.total_slices))
-        self.windows = w
-        self._cuts = [(k * self.total_slices) // w for k in range(w + 1)]
-        self._thread.start()
-
-    def _window_of(self, i: int) -> int:
-        return bisect.bisect_right(self._cuts, i) - 1
-
-    def _wait_turn(self, i: int) -> None:
-        with self._cv:
-            while (not self._abort
-                   and self._window_of(i)
-                   > self._consumed + 1 + self.PREFETCH):
-                self._cv.wait(0.5)
-
-    def _on_slice(self) -> None:
         with self._cv:
             self._cv.notify_all()
+        self.join(timeout)
 
     def window(self, k: int, timeout_s: float | None = None):
         """Block until window k has landed, then return its host (lo, hi)
-        int arrays (filtered as :meth:`collect`'s) and free its slices.
-        Raises RuntimeError on a failed or wedged stream."""
+        int arrays (as :meth:`collect_range` gives them) and free its
+        slices.  Raises RuntimeError on a failed or wedged stream."""
         lo_w, hi_w = self.collect_range(self._cuts[k], self._cuts[k + 1],
                                         timeout_s)
         with self._cv:
@@ -754,6 +659,11 @@ class _WindowStream(_StreamFetcher):
 
     def collect_range(self, s0: int, s1: int,
                       timeout_s: float | None = None):
+        """Host (lo, hi) of slices [s0, s1) once they have landed, which
+        frees them: packed, the dead sentinel slots already dropped; in
+        int32 pairs unfiltered (callers mask lo < n).  Span
+        ``handoff.unpack`` (attributes ``links``, the links returned;
+        packed, also ``dead`` of :func:`unpack_handoff`)."""
         if timeout_s is None:
             # a generous watchdog: a wedged transfer must never hold the
             # build forever
@@ -773,13 +683,17 @@ class _WindowStream(_StreamFetcher):
         part = self._slices[s0:s1]
         for i in range(s0, s1):  # bound resident memory to the window
             self._slices[i] = None
-        return self._unpack(part)
-
-    def abort(self, timeout: float = 5.0) -> None:
-        self._abort = True
-        with self._cv:
-            self._cv.notify_all()
-        self.join(timeout, mark_failed=False)
+        if not part:
+            return np.empty(0, np.int32), np.empty(0, np.int32)
+        with obs.timed("handoff.unpack", self.unpack_s) as sp:
+            if self.packed:
+                lo_h, hi_h, dead = unpack_handoff(part, self.n)
+                sp.annotate(dead=dead)
+            else:
+                los, his = zip(*part)
+                lo_h, hi_h = np.concatenate(los), np.concatenate(his)
+            sp.annotate(links=len(lo_h))
+        return lo_h, hi_h
 
 
 def _as_u32(a: np.ndarray) -> np.ndarray:
@@ -902,221 +816,27 @@ def _stream_tail(lo: torch.Tensor, hi: torch.Tensor, live: int, n: int,
     return parent, pst_out
 
 
-class _SpecHandoff:
-    """The speculative overlapped handoff of the serial arm (the
-    reference's ``_SpecHandoff``).
-
-    Soundness: every chunk output has the same threshold connectivity as
-    the input links, the forest is a function of threshold connectivity
-    only, and the fold takes an arbitrary-order multiset, so any complete
-    snapshot hands off exactly, and so does a union of (partial or
-    complete) snapshots.  Partial buffers of abandoned fetches are kept
-    and folded beside one complete snapshot; a wrong guess costs bytes,
-    never exactness.  A snapshot is never written after the loop hands it
-    out (``reduce_links_hosted``'s ``watch``), so a stream reads what it
-    was given.
-
-    Policy: once live <= SHEEP_OVERLAP_SPEC_FACTOR * n (default 8) and
-    the snapshot is at least SHEEP_OVERLAP_MIN_MB (default 4), stream it
-    (SHEEP_OVERLAP_SLICE links a slice) while the loop keeps reducing.  At
-    each later chunk: a finished stream stops the loop; a stream whose
-    bytes still in flight exceed MARGIN times a fresh fetch of the
-    smaller snapshot is abandoned (its partial kept) and restarted on the
-    smaller one.  At the loop's end, wait out the stream when its
-    remainder is cheaper than a fresh fetch of the final set, else
-    abandon it and fetch the final set serially.
-    """
-
-    MARGIN = 1.25
-
-    def __init__(self, n: int, device: torch.device):
-        self.n = n
-        self.bpl = 6 if pack_handoff(n, device) else 8
-        self.spec_live = int(os.environ.get(
-            "SHEEP_OVERLAP_SPEC_FACTOR", "8")) * n
-        self.slice_links = int(os.environ.get(
-            "SHEEP_OVERLAP_SLICE", str(1 << 18)))
-        self.min_bytes = int(float(os.environ.get(
-            "SHEEP_OVERLAP_MIN_MB", "4")) * (1 << 20))
-        self.active: _StreamFetcher | None = None
-        self.kept: list[tuple[np.ndarray, np.ndarray]] = []
-        self.dead = False  # a failed fetch disables further speculation
-        self.phases: list[dict] = []  # each started fetcher's breakdown
-        self.stats: dict = {"overlap": True, "spec_starts": 0,
-                            "spec_restarts": 0, "spec_wasted_mb": 0.0,
-                            "spec_stopped_loop": False,
-                            "spec_mode": "never_started"}
-
-    @staticmethod
-    def maybe(n: int, device: torch.device) -> "_SpecHandoff | None":
-        """A speculation policy where the overlap gate is on, else None
-        (the port's fold is always native, so it is the gate alone)."""
-        if not _overlap_enabled(device):
-            return None
-        return _SpecHandoff(n, device)
-
-    def _start(self, lo, hi, live: int) -> None:
-        try:
-            self.active = _StreamFetcher(lo, hi, self.n, live,
-                                         self.slice_links)
-            self.phases.append(self.active.phases)
-            self.stats["spec_starts"] += 1
-            self.stats.setdefault("spec_start_live", live)
-        except Exception:
-            self.active = None
-            self.dead = True
-
-    def _abandon(self) -> None:
-        f = self.active
-        self.active = None
-        if f is None:
-            return
-        f.abort()
-        self.stats["spec_wasted_mb"] = round(
-            self.stats["spec_wasted_mb"] + f.fetched_bytes() / (1 << 20), 2)
-        if not f.failed and f.done_slices:
-            self.kept.append(f.collect())
-        if f.failed:
-            self.dead = True
-
-    def on_chunk(self, lo, hi, live) -> bool:
-        """``reduce_links_hosted``'s ``watch`` hook: True stops the
-        loop."""
-        live = int(live)
-        if self.dead:
-            return False
-        if self.active is not None:
-            if self.active.failed:
-                self._abandon()
-                return False
-            if self.active.finished():
-                self.stats["spec_stopped_loop"] = True
-                return True
-            if self.active.remaining_bytes() > \
-                    live * self.bpl * self.MARGIN:
-                self.stats["spec_restarts"] += 1
-                self._abandon()
-                # a restart keeps the first start's floor: below it the
-                # fetch costs less than a new pack
-                if not self.dead and live * self.bpl >= self.min_bytes:
-                    self._start(lo, hi, live)
-            return False
-        if live <= self.spec_live and live * self.bpl >= self.min_bytes:
-            self._start(lo, hi, live)
-        return False
-
-    def abort_all(self) -> None:
-        """Converged without a handoff: nothing to collect."""
-        if self.active is not None:
-            self.active.abort()
-            self.active = None
-        self.kept = []
-
-    def complete(self, lo, hi, live: int) -> tuple[np.ndarray, np.ndarray]:
-        """The host handoff link set at the loop's end: one complete
-        snapshot (streamed or freshly fetched) plus any kept partials,
-        lo < n filtered."""
-        live = int(live)
-        mode = "plain"
-        lo_h = hi_h = None
-        f = self.active
-        if f is not None and not f.failed:
-            if f.finished():
-                mode = "spec_complete"
-            elif f.remaining_bytes() <= live * self.bpl:
-                mode = "spec_wait"
-                # a generous watchdog (0.5 MB/s plus grace): a wedged
-                # stream falls back to the serial fetch, never holds
-                f.join(timeout=f.remaining_bytes() / 5e5 + 120.0)
-            else:
-                self._abandon()
-                f = None
-                mode = "restart_final"
-            if f is not None and not f.failed:
-                lo_h, hi_h = f.collect()
-                self.active = None
-        if lo_h is None:
-            # never started, failed or abandoned at the end: fetch the
-            # final reduced set the serial way
-            lo_h, hi_h, _ = fetch_links_host(lo, hi, live, self.n)
-            if mode == "spec_wait":
-                # the watchdog fired mid-wait: say so, and count its bytes
-                mode = "spec_wait_timeout"
-                if f is not None:
-                    self.stats["spec_wasted_mb"] = round(
-                        self.stats["spec_wasted_mb"]
-                        + f.fetched_bytes() / (1 << 20), 2)
-            elif mode != "restart_final":
-                mode = "plain"
-        if self.kept:
-            klo, khi = zip(*self.kept)
-            lo_h = np.concatenate([lo_h, *klo])
-            hi_h = np.concatenate([hi_h, *khi])
-            self.kept = []
-        keep = lo_h < self.n
-        self.stats["spec_mode"] = mode
-        return np.ascontiguousarray(lo_h[keep]), \
-            np.ascontiguousarray(hi_h[keep])
-
-
-def reduce_and_fetch_links(lo, hi, n: int, stop_live: int,
-                           handoff_input: bool = False, perf=None):
-    """The serial arm's reduce + fetch: chunk rounds to ``stop_live``
-    with the speculative overlapped fetch where :func:`_overlap_enabled`
-    (:class:`_SpecHandoff`), a serial fetch after the loop elsewhere.
-    Returns (kind, a, b, live, rounds): kind "device" (converged before
-    the threshold; a/b are device link tensors) or "host" (a/b are the
-    fetched, lo<n-filtered host link arrays).  ``perf`` gains loop_s,
-    fetch_tail_s, rounds, live and, on a handoff, handoff_links (the
-    links actually handed off, kept partials included) and
-    packed_handoff; with the speculation also its stats (overlap,
-    spec_starts, spec_restarts, spec_wasted_mb, spec_stopped_loop,
-    spec_mode, spec_start_live) and ``spec_fetch_phases``, its fetch
-    threads' :func:`fetch_phases` summed."""
-    spec = _SpecHandoff.maybe(n, lo.device)
-    lo, hi, live, rounds, converged = _hosted_loop(
-        lo, hi, n, perf, stop_live=stop_live, handoff_input=handoff_input,
-        watch=spec.on_chunk if spec is not None else None)
-    t1 = time.perf_counter()
-    if converged:
-        if spec is not None:
-            spec.abort_all()
-        if perf is not None:
-            perf["fetch_tail_s"] = 0.0
-            if spec is not None:
-                perf.update(spec.stats)
-                perf["spec_fetch_phases"] = merge_phases(spec.phases)
-        return "device", lo, hi, int(live), rounds
-    if spec is not None:
-        lo_h, hi_h = spec.complete(lo, hi, int(live))
-    else:
-        lo_h, hi_h, _ = fetch_links_host(lo, hi, int(live), n)
-    if perf is not None:
-        perf["fetch_tail_s"] = round(time.perf_counter() - t1, 4)
-        perf["handoff_links"] = int(len(lo_h))
-        perf["packed_handoff"] = pack_handoff(n, lo.device)
-        if spec is not None:
-            perf.update(spec.stats)
-            perf["spec_fetch_phases"] = merge_phases(spec.phases)
-    return "host", lo_h, hi_h, int(live), rounds
-
-
-def _serial_fold(lo_h, hi_h, n: int, pst_h, perf, packed: bool) -> tuple:
-    """Resolve ``pst_h`` (None: the fold counts pst), then the monolithic
-    fold; ``perf`` gains pst_wait_s and fold_s (spans
-    ``handoff.pst_wait``, ``handoff.fold``, the latter with ``packed``,
-    the width the links crossed in)."""
+def _serial_tail(lo, hi, live: int, n: int, pst_h, perf) -> tuple:
+    """The serial tail, of the ``SHEEP_STREAM_HANDOFF=0`` arm and of a
+    failed stream alike: fetch the live prefix (:func:`fetch_links_host`),
+    resolve ``pst_h`` (None: the fold counts pst), then fold once.
+    Returns (parent, pst, links, packed): the links folded and the width
+    they crossed in.  ``perf`` gains handoff_links, packed_handoff,
+    fetch_windows (0), pst_wait_s and fold_s (spans ``handoff.pst_wait``
+    and ``handoff.fold``, the latter with ``packed``)."""
+    lo_h, hi_h, packed = fetch_links_host(lo, hi, live, n)
     waited: list = []
     folded: list = []
     with obs.timed("handoff.pst_wait", waited):
         if callable(pst_h):
             pst_h = pst_h()
     with obs.timed("handoff.fold", folded, links=len(lo_h), packed=packed):
-        out = finish_native_host(lo_h, hi_h, n, pst_h)
+        parent, pst = finish_native_host(lo_h, hi_h, n, pst_h)
     if perf is not None:
-        perf["pst_wait_s"] = round(waited[0], 4)
-        perf["fold_s"] = round(folded[0], 4)
-    return out
+        perf.update(handoff_links=int(len(lo_h)), packed_handoff=packed,
+                    fetch_windows=0, pst_wait_s=round(waited[0], 4),
+                    fold_s=round(folded[0], 4))
+    return parent, pst, len(lo_h), packed
 
 
 def _hosted_loop(lo, hi, n: int, perf, **kw):
@@ -1171,28 +891,21 @@ def _reduce_and_finish(lo, hi, n: int, stop_live: int, handoff_input: bool,
                        pst_h, accumulate_pst_ok: bool, perf):
     """The body of :func:`reduce_and_finish_native`, which counts its
     bytes."""
-    if not stream_handoff_enabled():
-        kind, a, b, live, rounds = reduce_and_fetch_links(
-            lo, hi, n, stop_live=stop_live, handoff_input=handoff_input,
-            perf=perf)
-        if kind == "device":
-            return "device", a, b, live, rounds
-        parent, pst = _serial_fold(a, b, n, pst_h, perf,
-                                   pack_handoff(n, lo.device))
-        if perf is not None:
-            perf["fetch_tail_s"] = round(
-                perf.get("fetch_tail_s", 0.0) + perf["pst_wait_s"]
-                + perf["fold_s"], 4)
-            perf["fetch_windows"] = 0
-        return "forest", parent, pst, live, rounds
+    stream = stream_handoff_enabled()
     # handoff_sort=False: the streamed tail sorts by hi for its windows
     lo, hi, live, rounds, converged = _hosted_loop(
         lo, hi, n, perf, stop_live=stop_live, handoff_input=handoff_input,
-        handoff_sort=False)
+        handoff_sort=not stream)
     if converged:
         if perf is not None:
             perf["fetch_tail_s"] = 0.0
         return "device", lo, hi, int(live), rounds
+    if not stream:
+        t0 = time.perf_counter()
+        parent, pst, _, _ = _serial_tail(lo, hi, int(live), n, pst_h, perf)
+        if perf is not None:
+            perf["fetch_tail_s"] = round(time.perf_counter() - t0, 4)
+        return "forest", parent, pst, int(live), rounds
     accumulate = accumulate_pst_ok and rounds == 0
     tail_s: list = []
     bytes_before = handoff_bytes
@@ -1202,13 +915,10 @@ def _reduce_and_finish(lo, hi, n: int, stop_live: int, handoff_input: bool,
             # the stream failed: serial fetch of the SAME device arrays
             # and the monolithic fold; ``accumulate`` holds for it too
             # (same multiset), so the fold counts pst exactly as planned
-            lo_h, hi_h, packed = fetch_links_host(lo, hi, int(live), n)
-            sp.annotate(windows=0, links=len(lo_h), packed=packed)
-            if perf is not None:
-                perf["handoff_links"] = int(len(lo_h))
-                perf["packed_handoff"] = packed
-            out = _serial_fold(lo_h, hi_h, n,
-                               None if accumulate else pst_h, perf, packed)
+            parent, pst, links, packed = _serial_tail(
+                lo, hi, int(live), n, None if accumulate else pst_h, perf)
+            sp.annotate(windows=0, links=links, packed=packed)
+            out = parent, pst
         sp.annotate(bytes=handoff_bytes - bytes_before)
     parent, pst = out
     if perf is not None:

@@ -485,8 +485,7 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
                         stop_live: int = 0, levels: int = 10,
                         jrounds: int = 8, first_levels: int = 4,
                         handoff_input: bool = False,
-                        handoff_sort: bool = True, watch=None,
-                        runtime=None):
+                        handoff_sort: bool = True, runtime=None):
     """Run chunk rounds until convergence (or until live <= stop_live),
     compacting between chunks.
 
@@ -506,17 +505,6 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
     the native fold; one plain sort first at n >= 2^21, which
     ``handoff_sort`` False skips: the streamed tail orders its windows
     by hi itself).
-
-    ``watch``: an optional hook called with the snapshot ``(lo, hi,
-    live)`` once a chunk's stats resolve and neither convergence nor the
-    stop has ended the loop, only while no vertex remap is active (the
-    snapshot is in the original vertex space, with every live link in its
-    first ``live`` slots).  Returning True stops the loop there
-    (converged=False).  The hybrid's speculative handoff fetches such a
-    snapshot while later chunks run (``ops.build._SpecHandoff``).  Nothing
-    writes into a tensor once it was handed out: every round, compaction,
-    remap, host assist and K1 launch writes only into tensors it
-    allocates, so a snapshot stays what it was while a fetch reads it.
 
     ``runtime``: an optional ``runtime.ChunkRuntime`` (the fault-tolerant
     build's ``single`` rung passes one).  Every dispatch (the opener and
@@ -574,8 +562,6 @@ def reduce_links_hosted(lo: torch.Tensor, hi: torch.Tensor, n: int,
         if stop_live and live_i <= stop_live:
             rlo, rhi = _restore(alo, ahi)
             return (rlo, rhi, live_i, rounds_ret, False), live_i, moved_i
-        if watch is not None and back is None and watch(alo, ahi, live_i):
-            return (alo, ahi, live_i, rounds_ret, False), live_i, moved_i
         return None, live_i, moved_i
 
     def _compact(alo, ahi, live_i):

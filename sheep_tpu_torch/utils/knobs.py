@@ -149,18 +149,9 @@ KNOBS: dict[str, Knob] = {k.name: k for k in [
     _K("SHEEP_PACK_HANDOFF", "flag", "0",
        "stream",
        "pack (h<<32|lo) handoff records across serial+stream fetches"),
-    _K("SHEEP_OVERLAP_HANDOFF", "flag", "0",
-       "stream",
-       "legacy speculative-snapshot overlap arm (round 4/5 A/B)"),
     _K("SHEEP_OVERLAP_SLICE", "int", "262144",
        "stream",
        "links per async fetch slice of the overlap path"),
-    _K("SHEEP_OVERLAP_MIN_MB", "int", "4",
-       "stream",
-       "minimum fetch size worth overlapping"),
-    _K("SHEEP_OVERLAP_SPEC_FACTOR", "int", "8",
-       "stream",
-       "speculative-snapshot size factor of the legacy overlap arm"),
     # -- extmem ------------------------------------------------------------
     _K("SHEEP_EXT_BLOCK", "size", "524288 records",
        "extmem",

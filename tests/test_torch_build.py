@@ -3,7 +3,7 @@ sheep_tpu's ops/build.py (JAX on the CPU) and the host oracle exactly.
 
 The hybrid's cases run on both handoff arms (the ``arm`` fixture), each
 package under the same knobs: the streamed windowed handoff, the default,
-and the serial arm (SHEEP_STREAM_HANDOFF=0 SHEEP_OVERLAP_HANDOFF=0)."""
+and the serial arm (SHEEP_STREAM_HANDOFF=0)."""
 
 import contextlib
 import io
@@ -36,7 +36,6 @@ def arm(request, monkeypatch):
     one fold, "stream" the streamed windowed handoff (the default)."""
     monkeypatch.setenv("SHEEP_STREAM_HANDOFF",
                        "0" if request.param == "serial" else "1")
-    monkeypatch.setenv("SHEEP_OVERLAP_HANDOFF", "0")
     for k in ("SHEEP_HANDOFF_WINDOWS", "SHEEP_STREAM_DEVICE_WINDOWS",
               "SHEEP_STREAM_HOST_SEQ"):
         monkeypatch.delenv(k, raising=False)

@@ -50,8 +50,7 @@ def span_env(monkeypatch):
                  ("SHEEP_OVERLAP_SLICE", "512"),
                  ("SHEEP_PACK_HANDOFF", "1")):
         monkeypatch.setenv(k, v)
-    for k in ("SHEEP_TRACE", "SHEEP_TRACE_SAMPLE", "SHEEP_HANDOFF_FACTOR",
-              "SHEEP_OVERLAP_HANDOFF"):
+    for k in ("SHEEP_TRACE", "SHEEP_TRACE_SAMPLE", "SHEEP_HANDOFF_FACTOR"):
         monkeypatch.delenv(k, raising=False)
     obs.close_recorder()
     yield monkeypatch

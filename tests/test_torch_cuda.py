@@ -2,8 +2,7 @@
 versions (K1 also in forced table groupings; K1, P1 and P2 on views that
 are not 16-byte aligned and on ragged lengths; K1 and P2 also with lo
 below 0 and past the table), the CUDA builds (the hybrid on the
-streamed, serial and speculative arms, the last also forced to hand off
-the snapshot its side stream fetched) against the port's host oracle,
+streamed and serial arms) against the port's host oracle,
 the hybrid's card-counted pst and side-stream fetch of seq and pst
 against the CPU build,
 and the fault-tolerant build on the card (K1 on its single rung, a kill
@@ -21,8 +20,6 @@ runs on the GPU machine, which has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
-
-import threading
 
 import numpy as np
 import pytest
@@ -209,8 +206,8 @@ def test_p2_layouts_equal_plain(cuda, layout):
 def test_cuda_hybrid_arms_equal_oracle(cuda, monkeypatch, arm):
     """R-MAT 2^18 x 8 on the card: the streamed windowed tail (4 windows,
     pinned slices on the side stream) and the serial arm."""
-    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_OVERLAP_HANDOFF",
-              "SHEEP_HANDOFF_FACTOR", "SHEEP_PACK_HANDOFF"):
+    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_HANDOFF_FACTOR",
+              "SHEEP_PACK_HANDOFF"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("SHEEP_HANDOFF_WINDOWS", "4")
     # slices small enough that the 4 windows each get some (the stream
@@ -218,7 +215,6 @@ def test_cuda_hybrid_arms_equal_oracle(cuda, monkeypatch, arm):
     monkeypatch.setenv("SHEEP_OVERLAP_SLICE", str(1 << 14))
     if arm == "serial":
         monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
-        monkeypatch.setenv("SHEEP_OVERLAP_HANDOFF", "0")
     tail, head = rmat_edges(18, 8 << 18, seed=6)
     want_seq = degree_sequence(tail, head)
     want = build_forest(tail, head, want_seq)
@@ -242,9 +238,9 @@ def test_cuda_hybrid_counts_pst_on_the_card(cuda, monkeypatch, given):
     counts pst and the prefetch fetches seq and pst on a side stream (for
     a given order, pst alone), equal to the CPU build bit for bit, with
     no host pst pass."""
-    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_OVERLAP_HANDOFF",
-              "SHEEP_HANDOFF_FACTOR", "SHEEP_PACK_HANDOFF",
-              "SHEEP_HANDOFF_WINDOWS", "SHEEP_OVERLAP_SLICE"):
+    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_HANDOFF_FACTOR",
+              "SHEEP_PACK_HANDOFF", "SHEEP_HANDOFF_WINDOWS",
+              "SHEEP_OVERLAP_SLICE"):
         monkeypatch.delenv(k, raising=False)
     n = 1 << 18
     tail, head = rmat_edges(18, 8 << 18, seed=9)
@@ -267,123 +263,6 @@ def test_cuda_hybrid_counts_pst_on_the_card(cuda, monkeypatch, given):
     [pre] = cap.named("build.prefetch")
     assert pre.attrs == {"source": "card",
                          "bytes": (1 if given else 2) * n * 4}
-
-
-def test_cuda_speculative_arm_raises(cuda, monkeypatch):
-    """Stream off on the card is the speculative overlapped snapshot (the
-    overlap's CUDA default).  The port once refused it; it now runs it,
-    equal to the oracle, through K1.  (The name is the refusal's, kept.)"""
-    monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
-    for k in ("SHEEP_OVERLAP_HANDOFF", "SHEEP_HANDOFF_FACTOR",
-              "SHEEP_OVERLAP_SPEC_FACTOR"):
-        monkeypatch.delenv(k, raising=False)
-    # a floor and slices small enough that a stream starts at this size
-    monkeypatch.setenv("SHEEP_OVERLAP_MIN_MB", "0.01")
-    monkeypatch.setenv("SHEEP_OVERLAP_SLICE", str(1 << 14))
-    tail, head = rmat_edges(18, 8 << 18, seed=2)
-    want_seq = degree_sequence(tail, head)
-    want = build_forest(tail, head, want_seq)
-    perf = {}
-    pj.launches = 0
-    seq, forest = build_graph_hybrid(tail, head, perf=perf)
-    assert pj.launches > 0
-    assert perf["overlap"] is True and perf["spec_starts"] >= 1, perf
-    np.testing.assert_array_equal(seq, want_seq)
-    np.testing.assert_array_equal(forest.parent, want.parent)
-    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
-
-
-@pytest.fixture
-def spec_forced(monkeypatch):
-    """Force one outcome of the speculative handoff through its seams.
-    "spec_complete": at each chunk after its start the stream is joined
-    (left to land) before the policy looks, so the loop stops on a
-    finished stream.  "spec_wait": each stream holds its last slice until
-    a caller joins it, and at each chunk and at the loop's end the policy
-    looks only once the stream has fetched the rest, so the loop ends
-    with the stream one slice short and ``complete`` waits it out.  The
-    slices copy on the side stream while the loop's next chunk runs."""
-    from sheep_tpu_torch.ops import build
-
-    class LastSliceHeld(build._StreamFetcher):
-        def __init__(self, *args, **kwargs):
-            self._gate = threading.Event()
-            self.at_gate = threading.Event()
-            super().__init__(*args, **kwargs)
-
-        def _wait_turn(self, i):
-            if i == self.total_slices - 1:
-                self.at_gate.set()
-                self._gate.wait(timeout=300)
-
-        def join(self, timeout=None, mark_failed=True):
-            self._gate.set()
-            return super().join(timeout, mark_failed)
-
-    def force(outcome):
-        on_chunk = build._SpecHandoff.on_chunk
-        complete = build._SpecHandoff.complete
-
-        def settle(spec):
-            if spec.active is None:
-                return
-            if outcome == "spec_complete":
-                spec.active.join(timeout=300)
-            else:
-                spec.active.at_gate.wait(timeout=300)
-
-        def settled_chunk(self, lo, hi, live):
-            settle(self)
-            return on_chunk(self, lo, hi, live)
-
-        def settled_complete(self, lo, hi, live):
-            settle(self)
-            return complete(self, lo, hi, live)
-
-        if outcome == "spec_wait":
-            monkeypatch.setattr(build, "_StreamFetcher", LastSliceHeld)
-        monkeypatch.setattr(build._SpecHandoff, "on_chunk", settled_chunk)
-        monkeypatch.setattr(build._SpecHandoff, "complete", settled_complete)
-
-    return force
-
-
-@pytest.mark.parametrize("packed", [True, False])
-@pytest.mark.parametrize("outcome", ["spec_complete", "spec_wait"])
-def test_cuda_spec_arm_hands_off_streamed_snapshot(cuda, monkeypatch,
-                                                   spec_forced, outcome,
-                                                   packed):
-    """The speculative arm on the card handing off the snapshot its stream
-    fetched on the side stream while later chunks ran: the stream stops
-    the loop (spec_complete) or is waited out at the end (spec_wait),
-    6-byte packed and in int32 pairs, where the stream reads the loop's
-    own lo and hi.  Equal to the oracle, through K1."""
-    monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
-    monkeypatch.delenv("SHEEP_OVERLAP_HANDOFF", raising=False)
-    monkeypatch.setenv("SHEEP_OVERLAP_MIN_MB", "0.01")
-    monkeypatch.setenv("SHEEP_OVERLAP_SLICE", str(1 << 14))
-    monkeypatch.setenv("SHEEP_OVERLAP_SPEC_FACTOR", "64")
-    # the card's default, so a chunk follows the stream's start
-    monkeypatch.setenv("SHEEP_HANDOFF_FACTOR", "3")
-    if packed:
-        monkeypatch.delenv("SHEEP_PACK_HANDOFF", raising=False)
-    else:
-        monkeypatch.setenv("SHEEP_PACK_HANDOFF", "0")
-    spec_forced(outcome)
-    tail, head = rmat_edges(18, 8 << 18, seed=2)
-    want_seq = degree_sequence(tail, head)
-    want = build_forest(tail, head, want_seq)
-    perf = {}
-    pj.launches = 0
-    seq, forest = build_graph_hybrid(tail, head, perf=perf)
-    assert pj.launches > 0
-    assert perf["spec_mode"] == outcome, perf
-    assert perf["packed_handoff"] is packed, perf
-    assert perf["spec_stopped_loop"] is (outcome == "spec_complete"), perf
-    assert perf["spec_fetch_phases"]["slices"] >= 1, perf
-    np.testing.assert_array_equal(seq, want_seq)
-    np.testing.assert_array_equal(forest.parent, want.parent)
-    np.testing.assert_array_equal(forest.pst_weight, want.pst_weight)
 
 
 @pytest.mark.parametrize("layout", ["aligned", "offset1", "offset2",

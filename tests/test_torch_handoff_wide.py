@@ -1,9 +1,9 @@
 """The handoff past 2^24 positions: ``pack_handoff`` packs a link into 6
 bytes only where n < 2^24, so a wider build crosses as int32 pairs of 8
-bytes on every arm (the streamed windows, the serial fetch, the
-speculative snapshot).  Each case reduces links that lie at the top of
-the position space, hands them off with packing asked for, and holds
-parent and pst to the benchmark's plain reference
+bytes on every arm (the streamed windows, three of them or one of the
+smallest slices, and the serial fetch).  Each case reduces links that
+lie at the top of the position space, hands them off with packing asked
+for, and holds parent and pst to the benchmark's plain reference
 (``portbench/harness/reference.py``: ``links_and_pst``,
 ``forest_union_find``), and the bytes the handoff counts
 (``ops.build.handoff_bytes``, ``perf["handoff_bytes"]``, the spans'
@@ -37,13 +37,13 @@ LINKS = 40_000
 INVALID = 0xFFFFFFFF
 
 ARMS = {
-    "stream": {"SHEEP_STREAM_HANDOFF": "1", "SHEEP_OVERLAP_HANDOFF": "0",
+    "stream": {"SHEEP_STREAM_HANDOFF": "1",
                "SHEEP_STREAM_DEVICE_WINDOWS": "1",
                "SHEEP_HANDOFF_WINDOWS": "3"},
-    "serial": {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "0"},
-    "spec": {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "1",
-             "SHEEP_OVERLAP_MIN_MB": "0.0001",
-             "SHEEP_OVERLAP_SPEC_FACTOR": "1000"},
+    "serial": {"SHEEP_STREAM_HANDOFF": "0"},
+    "stream1": {"SHEEP_STREAM_HANDOFF": "1",
+                "SHEEP_STREAM_DEVICE_WINDOWS": "1",
+                "SHEEP_HANDOFF_WINDOWS": "1"},
 }
 
 
@@ -99,8 +99,8 @@ def test_handoff_on_both_sides_of_2_24(arm, n, packed):
     kind, parent, pst, _, rounds = got
     assert kind == "forest" and rounds > 0
     assert perf["packed_handoff"] is packed
-    assert perf.get("stream_mode") == ("windowed" if arm == "stream"
-                                       else None)
+    assert perf.get("stream_mode") == (None if arm == "serial"
+                                       else "windowed")
     np.testing.assert_array_equal(parent, want_parent)
     np.testing.assert_array_equal(pst, want_pst)
 
@@ -112,16 +112,15 @@ def test_handoff_on_both_sides_of_2_24(arm, n, packed):
     assert sum(sp.attrs["bytes"] for sp in fetches) == bpl * fetched
     assert perf["handoff_bytes"] == PB.handoff_bytes - before \
         == bpl * fetched
-    if arm == "stream":
+    if arm == "serial":
+        assert cap.named("handoff.fold")[0].attrs["packed"] is packed
+        assert cap.named("handoff.fetch")[0].attrs["packed"] is packed
+    else:
         tail = cap.named("handoff.tail")[0]
         assert tail.attrs["bytes"] == perf["handoff_bytes"]
         assert tail.attrs["packed"] is packed
-    else:
-        assert cap.named("handoff.fold")[0].attrs["packed"] is packed
-        if arm == "serial":
-            assert cap.named("handoff.fetch")[0].attrs["packed"] is packed
-        else:
-            assert perf["spec_starts"] >= 1
+        if arm == "stream1":
+            assert tail.attrs["windows"] == 1
 
 
 def test_converged_build_fetches_nothing(monkeypatch):

@@ -38,10 +38,10 @@ HEP = os.path.join(REPO, "data", "hep-th.dat")
 @pytest.fixture(autouse=True)
 def default_knobs(monkeypatch):
     """Both packages on their CPU defaults."""
-    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_OVERLAP_HANDOFF",
-              "SHEEP_HANDOFF_FACTOR", "SHEEP_HANDOFF_WINDOWS",
-              "SHEEP_STREAM_DEVICE_WINDOWS", "SHEEP_STREAM_HOST_SEQ",
-              "SHEEP_PACK_HANDOFF", "SHEEP_DDUP_GRAPH"):
+    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_HANDOFF_FACTOR",
+              "SHEEP_HANDOFF_WINDOWS", "SHEEP_STREAM_DEVICE_WINDOWS",
+              "SHEEP_STREAM_HOST_SEQ", "SHEEP_PACK_HANDOFF",
+              "SHEEP_DDUP_GRAPH"):
         monkeypatch.delenv(k, raising=False)
 
 
@@ -213,14 +213,17 @@ def test_streaming_hosted_matches_whole(blocksize):
 
 @pytest.mark.parametrize("arm", ["serial", "spec"])
 def test_streaming_hosted_serial_and_spec_tails(monkeypatch, arm):
-    """The hosted build's final fold on the hybrid's other tail arms (the
-    serial fetch, and the speculative snapshot forced on), each equal to
-    the reference's under the same knobs."""
-    monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
-    monkeypatch.setenv("SHEEP_OVERLAP_HANDOFF",
-                       "1" if arm == "spec" else "0")
+    """The hosted build's final fold on the hybrid's other tail shapes:
+    the serial fetch, and ("spec", the case's old name) the card's window
+    queue forced on with 6-byte packing, 512-link slices and 4 windows;
+    each equal to the reference's under the same knobs."""
+    if arm == "serial":
+        monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "0")
+    else:
+        monkeypatch.setenv("SHEEP_STREAM_DEVICE_WINDOWS", "1")
+        monkeypatch.setenv("SHEEP_PACK_HANDOFF", "1")
+        monkeypatch.setenv("SHEEP_HANDOFF_WINDOWS", "4")
     monkeypatch.setenv("SHEEP_HANDOFF_FACTOR", "1")
-    monkeypatch.setenv("SHEEP_OVERLAP_MIN_MB", "0.0001")
     monkeypatch.setenv("SHEEP_OVERLAP_SLICE", "512")
     tail, head = rmat_edges(12, 8 << 12, seed=8)
     seq = degree_sequence(tail, head)
@@ -231,14 +234,14 @@ def test_streaming_hosted_serial_and_spec_tails(monkeypatch, arm):
         perf=perf)
     ref, ref_rounds = RS.build_graph_streaming_hosted(
         _blocks(tail, head, 5000), len(seq), pos, 5000)
-    assert perf["fetch_windows"] == 0
-    assert ("spec_mode" in perf) is (arm == "spec")
+    if arm == "serial":
+        assert perf["fetch_windows"] == 0 and "stream_mode" not in perf
+    else:
+        assert perf["stream_mode"] == "windowed", perf
+        assert perf["packed_handoff"] is True and perf["fetch_windows"] >= 1
     _same_forest(forest, ref)
     _same_forest(forest, build_forest(tail, head, seq))
-    if arm == "serial":
-        # under the speculation the loop stops when a stream has landed,
-        # a race with the fetch thread, so only the forest is fixed there
-        assert rounds == ref_rounds
+    assert rounds == ref_rounds
 
 
 @pytest.mark.parametrize("hosted", [False, True])

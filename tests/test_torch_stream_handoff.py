@@ -1,14 +1,15 @@
 """The port's streamed windowed handoff (sheep_tpu_torch/ops/build.py:
-_StreamFetcher, _WindowStream, _stream_tail and the streamed prep of
-build_graph_hybrid) equals sheep_tpu's (JAX on the CPU), the port's own
-serial arm and the host oracle bit for bit: the window-count sweep, the
-card's window queue forced onto CPU tensors (packed and pair), the serial
-fallback on a fetch or fold failure, the host-seq arm, the reduced
-multiset's prep pst, a partial given order, the fetcher's modes, the
-speculative arm (stream off, overlap on) run, and each packed arm's
-native unpack."""
+_WindowStream, _stream_tail and the streamed prep of build_graph_hybrid)
+equals sheep_tpu's (JAX on the CPU), the port's own serial arm and the
+host oracle bit for bit: the window-count sweep, the card's window queue
+forced onto CPU tensors (packed and pair), the serial fallback on a fetch
+or fold failure, the host-seq arm, the reduced multiset's prep pst, a
+partial given order, the window stream's modes, cut rule, abort and
+breakdown, and each packed arm's native unpack."""
 
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -32,8 +33,7 @@ def stream_env(monkeypatch):
     monkeypatch.setenv("SHEEP_STREAM_HANDOFF", "1")
     for k in ("SHEEP_HANDOFF_WINDOWS", "SHEEP_STREAM_DEVICE_WINDOWS",
               "SHEEP_STREAM_HOST_SEQ", "SHEEP_HANDOFF_FACTOR",
-              "SHEEP_OVERLAP_HANDOFF", "SHEEP_PACK_HANDOFF",
-              "SHEEP_OVERLAP_SLICE"):
+              "SHEEP_PACK_HANDOFF", "SHEEP_OVERLAP_SLICE"):
         monkeypatch.delenv(k, raising=False)
     return monkeypatch
 
@@ -53,10 +53,8 @@ def _same(got, want):
 def _serial(tail, head, n, env, **kw):
     """The port's serial arm on the same input."""
     env.setenv("SHEEP_STREAM_HANDOFF", "0")
-    env.setenv("SHEEP_OVERLAP_HANDOFF", "0")
     out = PB.build_graph_hybrid(tail, head, n, device="cpu", **kw)
     env.setenv("SHEEP_STREAM_HANDOFF", "1")
-    env.delenv("SHEEP_OVERLAP_HANDOFF")
     return out
 
 
@@ -65,12 +63,16 @@ def _oracle(tail, head, seq=None, max_vid=None):
     return seq, build_forest(tail, head, seq, max_vid=max_vid)
 
 
-@pytest.mark.parametrize("device_windows", [False, True])
+@pytest.mark.parametrize("device_windows", [False, True, "packed"])
 @pytest.mark.parametrize("w", [1, 2, 4, 8])
 def test_windowed_parity_sweep(stream_env, w, device_windows):
     """W in {1, 2, 4, 8}, windows split on the host or streamed by the
-    window queue: equal to the serial arm, the reference and the oracle."""
+    window queue, in int32 pairs or 6-byte packed (the card's default
+    under 2^24, unpacked by ``native.unpack_links_6b``): equal to the
+    serial arm, the reference and the oracle."""
     n, tail, head = _graph()
+    if device_windows == "packed":
+        stream_env.setenv("SHEEP_PACK_HANDOFF", "1")
     serial = _serial(tail, head, n, stream_env)
     stream_env.setenv("SHEEP_HANDOFF_WINDOWS", str(w))
     if device_windows:
@@ -80,6 +82,7 @@ def test_windowed_parity_sweep(stream_env, w, device_windows):
     got = PB.build_graph_hybrid(tail, head, n, perf=perf, device="cpu")
     assert perf["stream_mode"] == "windowed", perf
     assert perf["fetch_windows"] == w
+    assert perf["packed_handoff"] is (device_windows == "packed")
     assert len(perf["window_fetch_s"]) == len(perf["window_fold_s"]) == w
     assert 0.0 <= perf["overlap_frac"] <= 1.0
     _same(got, serial)
@@ -107,6 +110,22 @@ def test_device_window_queue_forced_on_cpu(stream_env, packed):
     assert perf["fetch_windows"] == 4
     _same(got, serial)
     _same(got, RB.build_graph_hybrid(tail, head, n))
+
+
+def test_hybrid_overlap_rmat_larger(stream_env):
+    """A larger R-MAT through the whole hybrid on the card's window queue
+    (device windows, W = 4, slices of 4096) at factor 1, the longest
+    loop: equal to the reference under the same knobs and the oracle."""
+    tail, head = rmat_edges(13, 8 << 13, seed=5)
+    stream_env.setenv("SHEEP_STREAM_DEVICE_WINDOWS", "1")
+    stream_env.setenv("SHEEP_HANDOFF_WINDOWS", "4")
+    stream_env.setenv("SHEEP_OVERLAP_SLICE", "4096")
+    perf = {}
+    got = PB.build_graph_hybrid(tail, head, handoff_factor=1, perf=perf,
+                                device="cpu")
+    assert perf["stream_mode"] == "windowed" and perf["rounds"] > 0, perf
+    _same(got, RB.build_graph_hybrid(tail, head, handoff_factor=1))
+    _same(got, _oracle(tail, head))
 
 
 def test_mid_stream_fetch_failure_falls_back_serial(stream_env,
@@ -234,43 +253,20 @@ def test_stream_gates(stream_env):
     assert PB.handoff_windows((1 << 20) - 1, cuda) == 1
     assert PB.host_seq_mode(CPU) is RB.host_seq_mode() is True
     assert PB.host_seq_mode(cuda) is False
-    assert PB._overlap_enabled(CPU) is RB._overlap_enabled() is False
-    assert PB._overlap_enabled(cuda) is True
     stream_env.setenv("SHEEP_HANDOFF_WINDOWS", "3")
     stream_env.setenv("SHEEP_STREAM_HOST_SEQ", "0")
     assert PB.handoff_windows(10, cuda) == RB.handoff_windows(10) == 3
     assert PB.host_seq_mode(CPU) is RB.host_seq_mode() is False
+    # the port has no speculative snapshot and reads none of its knobs:
+    # where the reference's legacy overlap turns the stream off, the
+    # port's stays on
     stream_env.delenv("SHEEP_STREAM_HANDOFF")
     stream_env.setenv("SHEEP_OVERLAP_HANDOFF", "1")
-    assert PB.stream_handoff_enabled() is RB.stream_handoff_enabled() \
-        is False
+    assert PB.stream_handoff_enabled() is True
+    assert RB.stream_handoff_enabled() is False
     stream_env.setenv("SHEEP_STREAM_HANDOFF", "0")
-    stream_env.setenv("SHEEP_OVERLAP_HANDOFF", "0")
     assert PB.stream_handoff_enabled() is RB.stream_handoff_enabled() \
         is False
-
-
-@pytest.mark.parametrize("stream", ["0", ""])
-def test_speculative_overlap_arm_raises(stream_env, stream):
-    """Stream off and overlap on, explicitly or by the overlap alone, is
-    the speculative overlapped snapshot (_SpecHandoff).  The port once
-    refused it; it now runs it, and equals sheep_tpu's hybrid under the
-    same environment and the oracle.  (The name is the refusal's, kept.)"""
-    n, tail, head = _graph(log_n=10)
-    if stream:
-        stream_env.setenv("SHEEP_STREAM_HANDOFF", stream)
-    else:
-        stream_env.delenv("SHEEP_STREAM_HANDOFF")
-    stream_env.setenv("SHEEP_OVERLAP_HANDOFF", "1")
-    stream_env.setenv("SHEEP_OVERLAP_MIN_MB", "0.0001")
-    stream_env.setenv("SHEEP_OVERLAP_SLICE", "512")
-    perf = {}
-    got = PB.build_graph_hybrid(tail, head, n, handoff_factor=1, perf=perf,
-                                device="cpu")
-    assert "stream_mode" not in perf and perf["overlap"] is True, perf
-    assert perf["spec_starts"] >= 1, perf
-    _same(got, RB.build_graph_hybrid(tail, head, n, handoff_factor=1))
-    _same(got, _oracle(tail, head))
 
 
 def _links(rng, n, live, pad):
@@ -285,32 +281,38 @@ def _t(a):
     return torch.from_numpy(a.astype(np.int32))
 
 
+def _drained(s) -> None:
+    """The stream's thread has ended with every slice landed."""
+    assert not s.join(timeout=60)
+    assert s.done_slices == s.total_slices and not s.failed
+
+
 @pytest.mark.parametrize("n", [1 << 20, (1 << 24) + 5])
 def test_stream_fetcher_packed_and_pair_modes(stream_env, n):
-    """The fetcher delivers the exact snapshot in the 6-byte-packed
-    (n < 2^24) and int32-pair (n >= 2^24) modes, as the reference's."""
+    """A one-window stream delivers the exact table in the 6-byte-packed
+    (n < 2^24) and int32-pair (n >= 2^24) modes, as the reference's
+    fetcher does."""
     stream_env.setenv("SHEEP_PACK_HANDOFF", "1")
     rng = np.random.default_rng(94)
     live, pad = 9000, 1 << 14
     lo, hi = _links(rng, n, live, pad)
-    f = PB._StreamFetcher(_t(lo), _t(hi), n, live, slice_links=2048)
-    assert not f.join(timeout=60)
-    assert f.finished() and not f.failed
+    f = PB._WindowStream(_t(lo), _t(hi), n, live, slice_links=2048,
+                         windows=1)
+    _drained(f)
     assert f.packed is (n < (1 << 24))
-    got_lo, got_hi = f.collect()
-    keep = got_lo < n
-    np.testing.assert_array_equal(got_lo[keep], lo[:live])
-    np.testing.assert_array_equal(got_hi[keep], hi[:live])
-    assert f.remaining_bytes() == 0
+    got = f.window(0)
+    keep = got[0] < n
+    np.testing.assert_array_equal(got[0][keep], lo[:live])
+    np.testing.assert_array_equal(got[1][keep], hi[:live])
     rf = RB._StreamFetcher(jnp.asarray(lo, jnp.int32),
                            jnp.asarray(hi, jnp.int32), n, live,
                            slice_links=2048)
     rf.join()
     want = rf.collect()
     if f.packed:  # the port's packed unpack drops the dead slots itself
-        assert len(got_lo) == live
+        assert len(got[0]) == live
         want = tuple(w[want[0] < n] for w in want)
-    for g, w in zip(f.collect(), want):
+    for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert (f.slice_len, f.total_slices, f.packed) == \
         (rf.slice_len, rf.total_slices, rf.packed)
@@ -322,11 +324,11 @@ def test_stream_fetcher_non_pow2_slice_covers_all(stream_env):
     n, pad = 1 << 20, 1 << 14
     live = pad - 100
     lo, hi = _links(np.random.default_rng(96), n, live, pad)
-    f = PB._StreamFetcher(_t(lo), _t(hi), n, live, slice_links=3000)
+    f = PB._WindowStream(_t(lo), _t(hi), n, live, slice_links=3000,
+                         windows=1)
     assert f.slice_len == 2048
-    assert not f.join(timeout=60)
-    assert f.finished()
-    got_lo, got_hi = f.collect()
+    _drained(f)
+    got_lo, got_hi = f.window(0)
     keep = got_lo < n
     np.testing.assert_array_equal(got_lo[keep], lo[:live])
     np.testing.assert_array_equal(got_hi[keep], hi[:live])
@@ -337,15 +339,111 @@ def test_stream_fetcher_abort_keeps_prefix(stream_env):
     rng = np.random.default_rng(95)
     lo = rng.integers(0, n - 1, pad)
     hi = rng.integers(0, n - 1, pad)
-    f = PB._StreamFetcher(_t(lo), _t(hi), n, pad, slice_links=1024)
+    f = PB._WindowStream(_t(lo), _t(hi), n, pad, slice_links=1024,
+                         windows=1)
     f.abort()  # immediately: whatever landed must be a prefix
     assert f.failed is False, "abort must not poison a healthy stream"
     assert not f._thread.is_alive()
-    got_lo, got_hi = f.collect()
+    got_lo, got_hi = f.collect_range(0, f.done_slices)
     k = len(got_lo)
     assert k % 1024 == 0 and k == f.done_slices * 1024
     np.testing.assert_array_equal(got_lo, lo[:k])
     np.testing.assert_array_equal(got_hi, hi[:k])
+
+
+def test_abort_slow_stream_does_not_poison(stream_env, monkeypatch):
+    """abort() on a slow but healthy stream, whose slice is still in
+    flight when the abort stops waiting, neither marks it failed nor
+    loses the slices that landed; the thread ends at the next slice
+    boundary."""
+    n, pad, slice_links = 1 << 20, 1 << 14, 1024
+    rng = np.random.default_rng(99)
+    lo = rng.integers(0, n - 1, pad)
+    hi = rng.integers(0, n - 1, pad)
+    gate = threading.Event()
+    real = PB._slice_rows
+
+    def slow(buf, start, length):
+        if start >= 2 * slice_links:  # the third slice waits on the gate
+            gate.wait(timeout=60)
+        return real(buf, start, length)
+
+    monkeypatch.setattr(PB, "_slice_rows", slow)
+    f = PB._WindowStream(_t(lo), _t(hi), n, pad, slice_links, windows=1)
+    deadline = time.monotonic() + 60
+    while f.done_slices < 2 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    f.abort(timeout=0.05)
+    assert f._thread.is_alive() and f.failed is False
+    gate.set()
+    assert not f.join(timeout=60)
+    assert f.failed is False and f.done_slices == 3
+    got_lo, got_hi = f.collect_range(0, f.done_slices)
+    np.testing.assert_array_equal(got_lo, lo[:3 * slice_links])
+    np.testing.assert_array_equal(got_hi, hi[:3 * slice_links])
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fetch_phases_count_every_slice(stream_env, packed):
+    """A stream's breakdown (``fetch_phases``): every slice counted with
+    the bytes it landed, its allocation, enqueue and wait within the
+    slice's whole time, no device time on the CPU."""
+    stream_env.setenv("SHEEP_PACK_HANDOFF", "1" if packed else "0")
+    n, live, width = 1000, 5000, 8192
+    rng = np.random.default_rng(7)
+    lo = np.full(width, n, np.int32)
+    hi = np.full(width, n, np.int32)
+    lo[:live] = rng.integers(0, n - 1, live)
+    hi[:live] = lo[:live] + 1
+    f = PB._WindowStream(torch.from_numpy(lo), torch.from_numpy(hi), n,
+                         live, 1024, windows=1)
+    _drained(f)
+    p = f.phases
+    assert p["slices"] == f.total_slices == 5
+    assert p["bytes"] == 5 * 1024 * (6 if packed else 8)
+    assert p["device_ms"] == 0.0
+    assert 0 <= p["alloc_s"] + p["copy_s"] + p["wait_s"] <= p["busy_s"]
+    got_lo, got_hi = f.window(0)
+    np.testing.assert_array_equal(got_lo[:live], lo[:live])
+    np.testing.assert_array_equal(got_hi[:live], hi[:live])
+
+
+#: (live, width, slice, W, packed): live under one slice, none live,
+#: live an exact multiple of the slice, W above the slice count, a
+#: slice equal to and one past the width, an uneven cut, a slice
+#: below the 512 floor
+CUT_CASES = [(100, 4096, 1024, 4, False), (0, 4096, 1024, 4, False),
+             (4096, 8192, 1024, 4, False), (3000, 4096, 1024, 8, True),
+             (4000, 4096, 4096, 2, False), (4000, 4096, 1 << 14, 2, True),
+             (5 * 1024, 8192, 1024, 3, True), (2000, 4096, 100, 2, False)]
+
+
+@pytest.mark.parametrize("live, width, slice_links, w, packed", CUT_CASES)
+def test_window_cuts_equal_reference(stream_env, live, width, slice_links,
+                                     w, packed):
+    """The window cut rule against the reference's ``_WindowStream`` on
+    the same table: the same slice length, slice count, window count and
+    cuts, and each window's host links equal (the reference's with its
+    dead slots dropped where the port's packed unpack drops them)."""
+    stream_env.setenv("SHEEP_PACK_HANDOFF", "1" if packed else "0")
+    n = 1 << 16
+    lo, hi = _links(np.random.default_rng(live + w), n, live, width)
+    hi[:live] = np.sort(hi[:live])  # the stream takes a hi-sorted table
+    f = PB._WindowStream(_t(lo), _t(hi), n, live, slice_links, w)
+    rf = RB._WindowStream(jnp.asarray(lo, jnp.int32),
+                          jnp.asarray(hi, jnp.int32), n, live, slice_links,
+                          w)
+    assert (f.slice_len, f.total_slices, f.windows, f._cuts, f.packed) == \
+        (rf.slice_len, rf.total_slices, rf.windows, rf._cuts, rf.packed)
+    for k in range(f.windows):
+        got = f.window(k, timeout_s=60)
+        want = rf.window(k, timeout_s=60)
+        if packed:
+            want = tuple(x[want[0] < n] for x in want)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, x)
+    _drained(f)
+    assert not rf.join(timeout=60)
 
 
 def test_window_stream_under_thread_churn(stream_env):
@@ -379,9 +477,10 @@ def test_window_stream_under_thread_churn(stream_env):
 UNPACK_ARMS = {
     "stream": {"SHEEP_STREAM_DEVICE_WINDOWS": "1",
                "SHEEP_HANDOFF_WINDOWS": "4", "SHEEP_OVERLAP_SLICE": "2048"},
-    "serial": {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "0"},
-    "spec": {"SHEEP_STREAM_HANDOFF": "0", "SHEEP_OVERLAP_HANDOFF": "1",
-             "SHEEP_OVERLAP_MIN_MB": "0.0001", "SHEEP_OVERLAP_SLICE": "512"},
+    "serial": {"SHEEP_STREAM_HANDOFF": "0"},
+    # one window of the smallest slices: the most slices a window unpacks
+    "stream1": {"SHEEP_STREAM_DEVICE_WINDOWS": "1",
+                "SHEEP_HANDOFF_WINDOWS": "1", "SHEEP_OVERLAP_SLICE": "512"},
 }
 
 
@@ -391,7 +490,7 @@ def test_packed_handoff_unpack(stream_env, arm):
     unpack's span (``handoff.unpack``, or ``handoff.fetch`` on the serial
     fetch) counts the dead slots it dropped, and the forest equals the
     reference's and the oracle's."""
-    n, tail, head = _graph(log_n=10 if arm == "spec" else 12)
+    n, tail, head = _graph()
     stream_env.setenv("SHEEP_PACK_HANDOFF", "1")
     for k, v in UNPACK_ARMS[arm].items():
         stream_env.setenv(k, v)
@@ -404,8 +503,10 @@ def test_packed_handoff_unpack(stream_env, arm):
     assert unpacks
     for sp in unpacks:
         assert sp.attrs["dead"] >= 0, sp.attrs
-    if arm == "stream":
+    if arm != "serial":
         assert perf["stream_mode"] == "windowed"
+        if arm == "stream1":
+            assert perf["fetch_windows"] == 1
         slots = sum(sp.attrs["links"] for sp in cap.named("handoff.slice"))
         links = cap.named("handoff.unpack")
         assert sum(sp.attrs["links"] for sp in links) \
