@@ -79,22 +79,58 @@ def _full_vid_pos(pos: np.ndarray, n: int) -> np.ndarray:
     return posx
 
 
-def _padded_block(tail, head, block_edges: int, vid_pad: int, device,
-                  pad_s: list | None = None, upload_s: list | None = None):
-    """One block as int32 tensors of ``block_edges`` records, padded with
-    ``vid_pad`` (which maps to the table's sentinel slot).  The host
-    padding runs in the span ``stream.pad``, the copies to ``device`` in
-    ``stream.upload``; ``pad_s`` and ``upload_s`` gain their seconds."""
+def _host_int32(a) -> np.ndarray:
+    """``a``'s records as int32, equal to ``astype(np.int32)`` of their
+    int64 values (wrap-around included): a view of a contiguous 32-bit
+    array, else one cast of its own records."""
+    a = np.asarray(a)
+    if a.dtype in (np.int32, np.uint32) and a.flags.c_contiguous:
+        return a.view(np.int32)
+    return a.astype(np.int32)
+
+
+def _device_vid_pos(pos: np.ndarray, n: int, device) -> torch.Tensor:
+    """:func:`_full_vid_pos` made on ``device``: a 32-bit ``pos`` crosses
+    as it is (uint32 INVALID reads as -1) and is mapped there; any other
+    dtype takes the host function."""
+    if pos.dtype not in (np.int32, np.uint32):
+        return torch.from_numpy(_full_vid_pos(pos, n)).to(device)
+    posx = torch.empty(len(pos) + 1, dtype=torch.int32, device=device)
+    posx[:-1].copy_(torch.from_numpy(_host_int32(pos)))
+    posx[-1] = n
+    return posx.masked_fill_((posx < 0) | (posx >= n), n)
+
+
+def _block_buffers(block_edges: int, device):
+    """The two int32 tensors of ``block_edges`` slots that every block of
+    a build is shaped in: stream order makes the refill safe."""
+    return tuple(torch.empty(block_edges, dtype=torch.int32, device=device)
+                 for _ in range(2))
+
+
+def _padded_block(tail, head, buf, vid_pad: int, pad_s: list | None = None,
+                  upload_s: list | None = None,
+                  upload_bytes: list | None = None):
+    """One block in ``buf`` (:func:`_block_buffers`), padded with
+    ``vid_pad`` (which maps to the table's sentinel slot).  The exact
+    records cross into the prefix, as int32, and the tail is filled on
+    the device: the span ``stream.pad`` (attribute ``pad``, the slots
+    filled) times the shaping, ``stream.upload`` (``bytes``, what
+    crossed) the copies; ``pad_s``, ``upload_s`` and ``upload_bytes``
+    gain the block's seconds and bytes."""
     b = len(tail)
-    with obs.timed("stream.pad", pad_s, records=b):
-        t = np.full(block_edges, vid_pad, dtype=np.int64)
-        h = np.full(block_edges, vid_pad, dtype=np.int64)
-        t[:b] = tail
-        h[:b] = head
-        t32, h32 = t.astype(np.int32), h.astype(np.int32)
-    with obs.timed("stream.upload", upload_s, records=b):
-        return (torch.from_numpy(t32).to(device),
-                torch.from_numpy(h32).to(device))
+    t, h = buf
+    with obs.timed("stream.pad", pad_s, records=b, pad=len(t) - b):
+        src = (_host_int32(tail), _host_int32(head))
+        t[b:].fill_(vid_pad)
+        h[b:].fill_(vid_pad)
+    nbytes = src[0].nbytes + src[1].nbytes
+    with obs.timed("stream.upload", upload_s, records=b, bytes=nbytes):
+        t[:b].copy_(torch.from_numpy(src[0]))
+        h[:b].copy_(torch.from_numpy(src[1]))
+    if upload_bytes is not None:
+        upload_bytes.append(nbytes)
+    return t, h
 
 
 def build_graph_streaming(blocks, n: int, pos: np.ndarray, block_edges: int,
@@ -105,13 +141,14 @@ def build_graph_streaming(blocks, n: int, pos: np.ndarray, block_edges: int,
     vid + 1; INVALID for absent vids).  Returns (Forest over n positions,
     total_rounds).  Device memory: O(n + V + block_edges)."""
     device = resolve_device(device)
-    pos_d = torch.from_numpy(_full_vid_pos(pos, n)).to(device)
+    pos_d = _device_vid_pos(pos, n, device)
     vid_pad = len(pos)  # pad records map to the table's sentinel slot
+    buf = _block_buffers(block_edges, device)
     parent = torch.full((n,), n, dtype=torch.int32, device=device)
     pst = torch.zeros(n, dtype=torch.int32, device=device)
     total_rounds = 0
     for tail, head in blocks:
-        t, h = _padded_block(tail, head, block_edges, vid_pad, device)
+        t, h = _padded_block(tail, head, buf, vid_pad)
         parent, pst, rounds = stream_block_step(parent, pst, t, h, pos_d, n)
         total_rounds += rounds
     return _to_forest(parent, pst, n), total_rounds
@@ -133,24 +170,26 @@ def build_graph_streaming_hosted(blocks, n: int, pos: np.ndarray,
     ``perf``: a dict that receives blocks, the blocks' seconds in their
     spans (block_pad_s, ``stream.pad``; block_upload_s, ``stream.upload``;
     block_loop_s, ``stream.loop``; the span ``stream.links`` holds the
-    link extraction), the final fold's keys (loop_s, rounds, live,
-    fetch_tail_s, ...) and k1_bytes, K1's least bytes in the blocks'
-    loops and the final one."""
+    link extraction), block_upload_bytes (the bytes the blocks' uploads
+    copied), the final fold's keys (loop_s, rounds, live, fetch_tail_s,
+    ...) and k1_bytes, K1's least bytes in the blocks' loops and the
+    final one."""
     from .build import (default_handoff_factor, handoff_input_ok,
                         reduce_and_finish_native)
 
     device = resolve_device(device)
-    pos_d = torch.from_numpy(_full_vid_pos(pos, n)).to(device)
+    pos_d = _device_vid_pos(pos, n, device)
     vid_pad = len(pos)
+    buf = _block_buffers(block_edges, device)
     carry_lo = carry_hi = None
     pst = torch.zeros(n, dtype=torch.int32, device=device)
     total_rounds = 0
     blocks_seen = 0
-    pad_s, upload_s, loop_s = [], [], []
+    pad_s, upload_s, upload_bytes, loop_s = [], [], [], []
     k1_before = _forest.k1_bytes
     for tail, head in blocks:
-        t, h = _padded_block(tail, head, block_edges, vid_pad, device,
-                             pad_s, upload_s)
+        t, h = _padded_block(tail, head, buf, vid_pad, pad_s, upload_s,
+                             upload_bytes)
         with obs.span("stream.links"):
             lo, hi, pst_b = _block_links(t, h, pos_d, n)
             pst = pst + pst_b
@@ -169,6 +208,7 @@ def build_graph_streaming_hosted(blocks, n: int, pos: np.ndarray,
         perf["blocks"] = blocks_seen
         perf["block_pad_s"] = round(sum(pad_s), 4)
         perf["block_upload_s"] = round(sum(upload_s), 4)
+        perf["block_upload_bytes"] = sum(upload_bytes)
         perf["block_loop_s"] = round(sum(loop_s), 4)
     if carry_lo is None:
         return Forest(np.full(n, INVALID_JNID, np.uint32),

@@ -30,7 +30,7 @@ from sheep_tpu_torch.utils import rmat_edges
 
 LOG_N = 12
 N = 1 << LOG_N
-BLOCK = 1 << 13
+BLOCK = 6 << 10  # 32,768 records: five full blocks and one of 2,048
 
 HYBRID_MAIN = {"build.prep", "build.loop", "handoff.tail", "handoff.sort",
                "handoff.pst_wait", "handoff.unpack", "handoff.fold"}
@@ -153,9 +153,16 @@ def test_stream_build_emits_the_layer_spans(graph):
                  "stream.loop"):
         got = cap.named(name)
         assert len(got) == blocks and all(par[sp.id] is None for sp in got)
-    assert [sp.attrs["records"] for sp in cap.named("stream.pad")] == \
-        [min(BLOCK, len(graph[0]) - s)
-         for s in range(0, len(graph[0]), BLOCK)]
+    records = [min(BLOCK, len(graph[0]) - s)
+               for s in range(0, len(graph[0]), BLOCK)]
+    assert [sp.attrs["records"] for sp in cap.named("stream.pad")] == records
+    # the exact records cross as int32 pairs; the card fills the rest
+    assert [sp.attrs["records"] for sp in cap.named("stream.upload")] == \
+        records
+    assert [sp.attrs["bytes"] for sp in cap.named("stream.upload")] == \
+        [8 * r for r in records]
+    assert [sp.attrs["pad"] for sp in cap.named("stream.pad")] == \
+        [BLOCK - r for r in records]
     assert all(sp.attrs["links"] >= sp.attrs["live"]
                for sp in cap.named("stream.loop"))
     for sp in cap.spans:
@@ -193,6 +200,9 @@ def test_stream_perf_keys_are_their_spans_durations(graph):
                       ("fold_s", "handoff.fold"),
                       ("unpack_s", "handoff.unpack")):
         assert perf[key] == _round_sum(cap.named(name)), key
+    assert perf["block_upload_bytes"] == sum(
+        sp.attrs["bytes"] for sp in cap.named("stream.upload")) == \
+        8 * len(graph[0])
     for key, name in (("loop_s", "build.loop"),
                       ("fetch_tail_s", "handoff.tail"),
                       ("pst_wait_s", "handoff.pst_wait")):

@@ -4,7 +4,8 @@ are not 16-byte aligned and on ragged lengths; K1 and P2 also with lo
 below 0 and past the table), the CUDA builds (the hybrid on the
 streamed and serial arms) against the port's host oracle,
 the hybrid's card-counted pst and side-stream fetch of seq and pst
-against the CPU build,
+against the CPU build, the out-of-core build's block intake on the card
+against the CPU build and within the peak of the host route it replaced,
 and the fault-tolerant build on the card (K1 on its single rung, a kill
 and resume, a real CUDA out-of-memory error and a watchdog on a held
 dispatch, each degrading to the host rung, and the watchdog's stream;
@@ -293,6 +294,64 @@ def test_k1_wild_lo_equals_plain(cuda, layout):
     one = torch.tensor([-3], dtype=torch.int32, device=cuda)
     big = torch.tensor([1000], dtype=torch.int32, device=cuda)
     assert pj.jump_group_cuda(f1, one, big).tolist() == [197]
+
+
+def test_cuda_stream_intake_equals_cpu_within_the_old_peak(cuda,
+                                                           monkeypatch):
+    """The out-of-core build on the card, 2^18 slots x 2^21 records in
+    blocks of 3 x 2^17 (the last one short): each block's exact int32
+    records crossing and padded on the card, the position table mapped
+    there.  Equal to the CPU build, and its allocated peak no higher than
+    that of the int64 host route it replaced (copied here)."""
+    from sheep_tpu_torch.ops import stream
+
+    for k in ("SHEEP_STREAM_HANDOFF", "SHEEP_HANDOFF_FACTOR",
+              "SHEEP_PACK_HANDOFF", "SHEEP_HANDOFF_WINDOWS",
+              "SHEEP_OVERLAP_SLICE", "SHEEP_STREAM_DEVICE_WINDOWS"):
+        monkeypatch.delenv(k, raising=False)
+    slots, block = 1 << 18, 3 << 17
+    tail, head = rmat_edges(18, 8 << 18, seed=12)
+    seq = degree_sequence(tail, head, slots)
+    pos = np.full(slots, 0xFFFFFFFF, np.uint32)
+    pos[seq] = np.arange(len(seq), dtype=np.uint32)
+
+    def blocks():
+        for s in range(0, len(tail), block):
+            yield tail[s:s + block], head[s:s + block]
+
+    def build(device, perf=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        f, _ = stream.build_graph_streaming_hosted(
+            blocks(), len(seq), pos, block, device=device, perf=perf)
+        return f, torch.cuda.max_memory_allocated()
+
+    want, _ = build("cpu")
+    perf = {}
+    got, peak = build(cuda, perf)
+    np.testing.assert_array_equal(got.parent, want.parent)
+    np.testing.assert_array_equal(got.pst_weight, want.pst_weight)
+    assert perf["blocks"] == 6 and len(tail) % block
+    assert perf["block_upload_bytes"] == 8 * len(tail)
+
+    def int64_padded_block(tail, head, buf, vid_pad, pad_s=None,
+                           upload_s=None, upload_bytes=None):
+        block_edges, device = buf
+        b = len(tail)
+        t = np.full(block_edges, vid_pad, dtype=np.int64)
+        h = np.full(block_edges, vid_pad, dtype=np.int64)
+        t[:b] = tail
+        h[:b] = head
+        return (torch.from_numpy(t.astype(np.int32)).to(device),
+                torch.from_numpy(h.astype(np.int32)).to(device))
+
+    monkeypatch.setattr(stream, "_block_buffers", lambda b, d: (b, d))
+    monkeypatch.setattr(stream, "_padded_block", int64_padded_block)
+    monkeypatch.setattr(stream, "_device_vid_pos", lambda p, n, d: (
+        torch.from_numpy(stream._full_vid_pos(p, n)).to(d)))
+    old, old_peak = build(cuda)
+    np.testing.assert_array_equal(old.parent, want.parent)
+    assert peak <= old_peak, (peak, old_peak)
 
 
 def _resilient_graph():

@@ -28,7 +28,8 @@ from sheep_tpu_torch.ops import (build_graph_streaming,
                                  build_graph_streaming_hosted,
                                  stream_block_step,
                                  streaming_degree_histogram)
-from sheep_tpu_torch.ops.stream import _full_vid_pos
+from sheep_tpu_torch.ops.stream import (_block_buffers, _device_vid_pos,
+                                        _full_vid_pos, _padded_block)
 from sheep_tpu_torch.utils import rmat_edges
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,6 +116,72 @@ def test_streaming_degree_histogram():
     np.testing.assert_array_equal(deg, ref)
     np.testing.assert_array_equal(
         deg, RS.streaming_degree_histogram(_blocks(tail, head, 13), n))
+
+
+INTAKE_SLOTS, INTAKE_BLOCK, INTAKE_N = 1000, 64, 600
+INVALID = 0xFFFFFFFF
+
+
+def _intake_case(case, rng):
+    """(tail, head, pos) for one case of the block intake."""
+    tail = rng.integers(0, INTAKE_SLOTS, INTAKE_BLOCK).astype(np.uint32)
+    head = rng.integers(0, INTAKE_SLOTS, INTAKE_BLOCK).astype(np.uint32)
+    # a permutation over more slots than positions: entries >= n
+    pos = rng.permutation(INTAKE_SLOTS).astype(np.uint32)
+    if case == "short":
+        tail, head = tail[:37], head[:37]
+    elif case == "one":
+        tail, head = tail[:1], head[:1]
+    elif case == "wrap":
+        tail = np.array([INTAKE_SLOTS - 1, 1 << 31, INVALID, (1 << 31) + 5,
+                         0], np.uint32)
+        head = tail[::-1].copy()
+    elif case == "strided":
+        tail, head = tail[::2], head[1::2]
+        assert not tail.flags.c_contiguous
+    elif case == "int64":
+        tail = tail.astype(np.int64)
+        head = head.astype(np.int64)
+        tail[:3] = [INTAKE_SLOTS - 1, (1 << 32) + 7, -2]
+    elif case == "pos_invalid":
+        pos[::7] = INVALID
+        pos[3::11] = (1 << 31) + 3
+    elif case == "pos_int32":
+        pos = pos.astype(np.int32)
+        pos[::5] = -1
+    elif case == "pos_int64":
+        pos = pos.astype(np.int64)
+        pos[::5] = -1
+        pos[1::9] = (1 << 32) + 2
+    return tail, head, pos
+
+
+@pytest.mark.parametrize("case", ["full", "short", "one", "wrap", "strided",
+                                  "int64", "pos_invalid", "pos_int32",
+                                  "pos_int64"])
+def test_block_intake_equals_the_int64_route(case):
+    """The device-side intake (each block's exact records uploaded as
+    int32 into reused buffers and padded there; the position table mapped
+    there) gives the tensors of the int64 host route it replaced: the
+    padded block's ``astype(np.int32)`` and ``_full_vid_pos``."""
+    tail, head, pos = _intake_case(case, np.random.default_rng(31))
+    vid_pad = len(pos)
+    buf = _block_buffers(INTAKE_BLOCK, "cpu")
+    for x in buf:
+        x.fill_(-7)  # what a block before this one left
+    nbytes = []
+    got = _padded_block(tail, head, buf, vid_pad, upload_bytes=nbytes)
+    b = len(tail)
+    for g, x in zip(got, (tail, head)):
+        want = np.full(INTAKE_BLOCK, vid_pad, np.int64)
+        want[:b] = x
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), want.astype(np.int32))
+    assert nbytes == [8 * b]
+    posx = _device_vid_pos(pos, INTAKE_N, "cpu")
+    want = _full_vid_pos(pos, INTAKE_N)
+    assert posx.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(posx.numpy(), want)
 
 
 @pytest.mark.parametrize("kw", [
